@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .core import device
 from .core.checkpoint import CheckpointManager
 from .core.errors import KeyhuntError
 from .core.log import get_logger
@@ -42,8 +43,9 @@ def parse_range(s: str):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="keyhunt-tpu",
-        description="TPU-native secp256k1 key search (BSGS + brute modes)",
+        prog="keyhunt",
+        description="secp256k1 key search on an NVIDIA GPU (BSGS + brute "
+                    "modes)",
     )
     p.add_argument("--config", default=None,
                    help="JSON config file (core/config.py); flags override "
@@ -182,6 +184,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    device.enable_compile_cache()
     log = get_logger()
     try:
         if args.config:
@@ -310,7 +313,7 @@ def _run(args, log) -> int:
             table_cache=args.host_table_cache,
         )
         table = None
-        cache = args.table_file or f"keyhunt_tpu_baby_{args.m_babies}.npz"
+        cache = args.table_file or f"keyhunt_baby_{args.m_babies}.npz"
         if args.resolve == "host" and args.sharded:
             log.error("--resolve host applies to the single-device engine "
                       "(sharded engines keep per-device tables)")
@@ -436,13 +439,11 @@ def _run(args, log) -> int:
         from .engine.minikeys import MinikeyEngine, MinikeyParams
 
         targets = parse_target_file(args.file, "address")
-        import jax
-
-        # tuned device batch (gate-26 sweep: 36.8M minikeys/s at 2^22 on
-        # v5e); CPU runs stay small so smoke tests compile quickly
+        # the GPU takes the device batch; CPU runs stay small so smoke
+        # tests compile quickly
         from .engine.minikeys import tuned_params
 
-        default_batch = (1 << 22) if jax.default_backend() != "cpu" else 4096
+        default_batch = tuned_params().batch if device.on_gpu() else 4096
         eng = MinikeyEngine(
             targets,
             prefix=args.minikey_prefix,
@@ -467,17 +468,15 @@ def _run(args, log) -> int:
             log.error("vanity mode needs -v prefixes or -f prefix file")
             return 2
         a, b = args.range or (1, 1 << 63)
-        import jax as _jax
-
         max_steps = (
             args.max_chunks * args.chunk_steps
             if args.max_chunks is not None
             else None
         )
         look = args.look or "compress"
-        if _jax.default_backend() != "cpu":
-            # fused-kernel vanity: interval membership inside the brute
-            # walk kernel (gather-free, pipelined)
+        if device.on_gpu():
+            # fused vanity: interval membership inside the brute walk
+            # chunk (gather-free, pipelined)
             from .engine.vanity import vanity_intervals
             from .utils.targets import TargetSet
 
@@ -507,11 +506,11 @@ def _run(args, log) -> int:
         else:
             if look != "compress":
                 log.warn("CPU vanity path matches compressed addresses "
-                         "only; -l %s ignored (use the TPU fused path)"
+                         "only; -l %s ignored (the GPU runs the fused path)"
                          % look)
             if args.endo:
                 log.warn("CPU vanity path has no endomorphism lanes; "
-                         "-e ignored (use the TPU fused path)")
+                         "-e ignored (the GPU runs the fused path)")
             eng = VanityEngine(
                 prefixes,
                 a,

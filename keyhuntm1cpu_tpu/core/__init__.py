@@ -1,6 +1,6 @@
 """Core runtime services: config, logging, errors, checkpoints, metrics.
 
-TPU-native re-implementation of the reference's header-only "modern core"
+Re-implementation of the reference's header-only "modern core"
 scaffolding (reference include/keyhunt/core/*, SURVEY.md §2.3) — but wired
 into the shipped engines instead of being test-only interface stubs.
 """

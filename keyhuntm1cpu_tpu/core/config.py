@@ -39,8 +39,7 @@ class Config:
     n_value: Optional[int] = None  # reference -n (exact-square N)
     filter_mult: int = 1  # reference -z probe-filter multiplier
     probe_mode: "str | None" = None  # bitmap-gather strategy
-    # (elem/sorted/row128; "dma" exists but is EXPERIMENTAL — known
-    # Mosaic compile crash on the current libtpu, filter/bitmap.py)
+    # (elem/sorted/row128, filter/bitmap.py)
     cascade2: str = "auto"  # level-2 hashed bloom (auto/on/off)
     table_comm: str = "all_gather"  # sharded-TABLE membership schedule
     # (all_gather/ring; only meaningful with --sharded table)

@@ -66,10 +66,10 @@ def get_metrics() -> Metrics:
 
 
 _HTML = """<!doctype html><meta charset=utf-8>
-<title>keyhunt-tpu</title>
+<title>keyhunt</title>
 <meta http-equiv=refresh content=2>
 <style>body{font:14px monospace;margin:2em}td{padding:.2em 1em}</style>
-<h2>keyhunt-tpu</h2><table id=t>%ROWS%</table>
+<h2>keyhunt</h2><table id=t>%ROWS%</table>
 """
 
 

@@ -1,34 +1,24 @@
-"""Fused Pallas brute-force pipeline: walk + hash + membership in ONE kernel.
+"""Fused brute-force chunk: walk + hash + membership in one jitted pass.
 
-Round-1 brute modes ran the XLA group walk, Pallas hash kernels, and an
-HBM bitmap-cascade membership — three HBM round trips plus one random
-gather per query, which capped them at the ~45M-gathers/s wall (CPU-class
-keys/s). This module removes the wall entirely: target sets in the wild
-are small (tens to thousands of 20-byte entries), so membership becomes a
-VMEM/SMEM broadcast-compare *inside* the walk kernel. Zero gathers, zero
-hash-word HBM traffic — only a packed per-point hit word leaves the chip.
+Target sets in the wild are small (tens to hundreds of 20-byte entries),
+so membership is a broadcast compare of each point's 64-bit query words
+against every target interval inside the chunk — no bitmap gathers, and
+only a packed per-point hit word is compacted and returned:
 
-Structure (mirrors curve/pwalk.py's two-kernel BSGS design):
-- kernel A (reused from pwalk): Jacobian advance chain, K bases per chunk.
-- kernel B (here): per grid block of SB steps x U offsets:
-    1. dx = tab_x - base_x, grouped-Montgomery batch inverse (one
-       addition-chain powering per block),
-    2. full affine x3 (and y3 for uncompressed/eth modes),
-    3. in-kernel hashing (hash/phash.py pure tile functions): hash160 of
-       both compressed parities / keccak256(x||y) / hash160(04||x||y) /
-       none for xpoint,
-    4. compare each 64-bit query word pair against all T target words
-       (SMEM-resident), OR-accumulate into a per-point hit bit-field.
-  Output: one uint32 per walk point — bits 0..nq-1 = query-set match,
-  bit 30 = degenerate walk lane (host re-verifies that key exactly).
+- the XLA group walk (curve/walk.py walk_fused) over K steps of U keys,
+- hashing (hash/hash160.py, hash/keccak.py) of both compressed parities,
+  the uncompressed point or the eth address — none for xpoint,
+- interval containment of the big-endian first 8 digest bytes: an exact
+  target is a point interval, a vanity prefix a real range, so one
+  compare path serves both and composes them (the reference's -v
+  alongside address mode, keyhunt.cpp:6270-6272).
 
-Candidate positions are compacted once per chunk in XLA (no false
-positives beyond 64-bit truncation collisions, so the compaction budget
-never overflows in practice) and verified exactly on the host.
+Output per point: bits 0..nq-1 = query-set match, bit 30 = degenerate
+walk lane (the host re-verifies that key exactly).
 
 Reference capability: thread_process hash160/xpoint hot loop
 (keyhunt.cpp:2511-3099) + GetHash160_fromX both-parity hashing
-(SECP256K1.cpp:746-790), re-designed TPU-first rather than translated.
+(SECP256K1.cpp:746-790).
 """
 
 from __future__ import annotations
@@ -38,16 +28,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..field import fe_tiles as ft
-from ..hash import phash
-from ..hash.phash import _bswap
 from ..ref import ecref
-from . import pwalk
-
-LANES = 128
 
 MODES = ("xpoint", "rmd160", "eth", "address_u", "rmd160_both")
 
@@ -58,301 +40,18 @@ def n_qsets(mode: str, n_endo: int) -> int:
     return per * n_endo
 
 
-def _const_tile(like: jnp.ndarray, value: int) -> jnp.ndarray:
-    """(8,)+tile field-element constant from a python int (Mosaic cannot
-    capture array constants; 32-bit python int literals are fine)."""
-    z = jnp.zeros_like(like[0])
-    return jnp.stack(
-        [z + np.uint32((value >> (32 * i)) & 0xFFFFFFFF) for i in range(8)]
-    )
-
-
-def _brute_kernel(bx_ref, by_ref, tabx_ref, taby_ref, tgt_ref, btab_ref,
-                  hit_ref, dens, prefs,
-                  SB: int, U: int, mode: str, n_endo: int, T: int,
-                  HR: int, TB: int):
-    """One grid block: SB steps x U offsets; emits packed hit words.
-
-    Membership is INTERVAL containment against T SMEM-resident 64-bit
-    big-endian bounds (tgt rows: [lo_hi, lo_lo, hi_hi, hi_lo]): an exact
-    target is a point interval (lo == hi), a vanity prefix is a real
-    range — one compare path serves both, and composes them (the
-    reference's -v alongside address mode, keyhunt.cpp:6270-6272).
-
-    TB > 0 adds LANE-BUCKETED exact membership for large target sets
-    (the unrolled SMEM compare stops scaling past ~512 entries): targets
-    are bucketed host-side by the low 7 bits of their 64-bit compare
-    value into the 128 lanes (pack_buckets), and each point gathers its
-    own bucket's rows by a dynamic lane shuffle (the take_along_axis
-    lowering validated in scripts/exp_gather.py) — comparing only the
-    HIGH 32 bits. That half-compare is sound: a real match shares all 64
-    bits, hence the bucket AND the high word; spurious survivors
-    (~T/128 * 2^-32 per point) are removed by the exact host verify that
-    every candidate already gets. Cost is TB gathers per point per query
-    set, linear in T/128 rather than T.
-
-    HR (hash sub-block rows, 8 | HR | rows) bounds the emit phase's live
-    working set: the hash pipelines keep ~25-50 state words live, and on
-    (rows, 128) tiles each word is rows/8 vregs — far past the physical
-    register file, so every op spills. Hashing (8*HR, 128)-point
-    sub-blocks instead shrinks each live word to HR/8 vregs (the same
-    aligned dynamic-offset pattern the grouped inverse uses). HR = rows
-    reproduces the original single-pass emit."""
-    rows = U // LANES
-    tx = tabx_ref[:, :, :]  # (8, rows, 128)
-    # bases arrive in (8, RB, 128) blocks (RB = min(8, K): Mosaic needs
-    # sublane-divisible blocks); this grid step's rows start at `off`
-    rb = bx_ref.shape[1]
-    off = (pl.program_id(0) * SB) % rb
-    needs_y = mode in ("eth", "address_u", "rmd160_both")
-    # bases arrive pre-blocked (8, SB, 128) — see pwalk._walk_kernel
-
-    def build(s, _):
-        bx = jnp.broadcast_to(bx_ref[:, pl.ds(off + s, 1), :], tx.shape)
-        dx = ft.sub(tx, bx)
-        degrow = ft.is_zero(dx)
-        dx = ft.select(degrow, ft.one_like(dx), dx)
-        dens[:, pl.ds(s * rows, rows), :] = dx
-        return 0
-
-    jax.lax.fori_loop(0, SB, build, 0)
-    pwalk._group_inverse_inplace(dens, prefs, (SB * rows) // 8)
-
-    nr = rows // HR
-    sub_shape = (8, HR, LANES)
-    if n_endo == 3:
-        beta = _const_tile(jnp.zeros(sub_shape, jnp.uint32), ecref.BETA)
-        beta2 = _const_tile(
-            jnp.zeros(sub_shape, jnp.uint32), ecref.BETA * ecref.BETA % ecref.P
-        )
-
-    def emit(i, _):
-        s = i // nr
-        r = i % nr
-        tx = tabx_ref[:, pl.ds(r * HR, HR), :]
-        ty = taby_ref[:, pl.ds(r * HR, HR), :]
-        bx = jnp.broadcast_to(bx_ref[:, pl.ds(off + s, 1), :], tx.shape)
-        by = jnp.broadcast_to(by_ref[:, pl.ds(off + s, 1), :], ty.shape)
-        degrow = ft.is_zero(ft.sub(tx, bx))  # (HR, 128)
-        inv_s = dens[:, pl.ds(s * rows + r * HR, HR), :]
-        lam = ft.mul(ft.sub(ty, by), inv_s)
-        x3 = ft.sub(ft.sub(ft.sqr(lam), bx), tx)
-        if needs_y:
-            y3 = ft.sub(ft.mul(lam, ft.sub(bx, x3)), by)
-            yl = [y3[i] for i in range(8)]
-        hit = jnp.zeros_like(x3[0])  # (rows, 128) uint32
-        q = 0
-        for e in range(n_endo):
-            if e == 0:
-                xv = x3
-            else:
-                # GLV: psi^e(x, y) = (beta^e * x, y) represents lambda^e*k
-                xv = ft.mul(x3, beta if e == 1 else beta2)
-            xl = [xv[i] for i in range(8)]
-            if mode == "xpoint":
-                # raw low-64 limbs; exact-only targets use the same packing
-                pairs = [(xv[1], xv[0])]
-            elif mode == "rmd160":
-                pairs = [
-                    phash.hash160_parity_words(xl, 2),
-                    phash.hash160_parity_words(xl, 3),
-                ]
-            elif mode == "rmd160_both":
-                pairs = [
-                    phash.hash160_parity_words(xl, 2),
-                    phash.hash160_parity_words(xl, 3),
-                    phash.hash160_u_words(xl, yl),
-                ]
-            elif mode == "eth":
-                pairs = [phash.keccak_eth_words(xl, yl)]
-            else:  # address_u
-                pairs = [phash.hash160_u_words(xl, yl)]
-            if mode != "xpoint":
-                # digest words are LE-packed; interval order is byte-
-                # lexicographic -> compare big-endian (bytes 0..7)
-                pairs = [(_bswap(lo_w), _bswap(hi_w)) for lo_w, hi_w in pairs]
-            for a, b in pairs:  # a = high 32 bits, b = low 32 bits
-                m = jnp.zeros_like(a, dtype=jnp.bool_)
-                for t in range(T):
-                    lo_h, lo_l = tgt_ref[0, t], tgt_ref[1, t]
-                    hi_h, hi_l = tgt_ref[2, t], tgt_ref[3, t]
-                    ge = (a > lo_h) | ((a == lo_h) & (b >= lo_l))
-                    le = (a < hi_h) | ((a == hi_h) & (b <= hi_l))
-                    m = m | (ge & le)
-                if TB:
-                    # bucketed exact targets: per-point dynamic lane
-                    # shuffle of the bucket rows, high-word compare only.
-                    # The loop carry must be u32, not bool — Mosaic cannot
-                    # legalize scf.for with a vector<i1> carried value.
-                    idx = (b & np.uint32(127)).astype(jnp.int32)
-
-                    def bcmp(l8, mm):
-                        blk = btab_ref[pl.ds(l8 * 8, 8), :]  # aligned
-                        for r in range(8):
-                            row = jnp.broadcast_to(blk[r][None, :], a.shape)
-                            hv = jnp.take_along_axis(row, idx, axis=-1)
-                            mm = mm | (a == hv).astype(jnp.uint32)
-                        return mm
-
-                    mb = jax.lax.fori_loop(
-                        0, TB // 8, bcmp, jnp.zeros_like(a))
-                    m = m | (mb != 0)
-                hit = hit | (m.astype(jnp.uint32) << q)
-                q += 1
-        # degenerate lanes produced garbage x3: suppress their hash hits,
-        # flag for exact host verification of that key instead
-        hit = jnp.where(degrow, jnp.uint32(1) << 30, hit)
-        hit_ref[pl.ds(s, 1), pl.ds(r * HR, HR), :] = hit[None]
-        return 0
-
-    jax.lax.fori_loop(0, SB * nr, emit, 0)
-
-
-def brute_walk_blocks(bases_x, bases_y, tab_x, tab_y, tgt, btab,
-                      U: int, SB: int, mode: str, n_endo: int,
-                      interpret: bool = False,
-                      hash_rows: int | None = None,
-                      n_bucket_rows: int = 0) -> jnp.ndarray:
-    """bases: (8, K, 128); tab: (8, U/128, 128); tgt: (4, T) uint32
-    interval bounds [lo_hi, lo_lo, hi_hi, hi_lo] (pack_intervals);
-    btab: (max(n_bucket_rows, 8), 128) uint32 bucketed high words
-    (pack_buckets; unused rows when n_bucket_rows == 0).
-    Returns packed hit words (K, U/128, 128) uint32. hash_rows bounds
-    the emit phase's live register set (see _brute_kernel)."""
-    K = bases_x.shape[1]
-    assert K % SB == 0, (K, SB)
-    rows = U // LANES
-    if (SB * rows) % 8 != 0 or SB * rows < 8:
-        raise ValueError(
-            f"brute_walk_blocks needs SB*U/128 to be a positive multiple "
-            f"of 8 (got SB={SB}, U={U})"
-        )
-    hr = hash_rows if hash_rows is not None else rows
-    # hr == rows is the original single-pass emit (any tile size);
-    # genuine sub-blocking needs aligned (multiple-of-8) sub-offsets
-    if hr != rows and (hr < 8 or hr % 8 != 0 or rows % hr != 0):
-        raise ValueError(
-            f"hash_rows must equal U/128 or be a multiple of 8 dividing "
-            f"U/128 (got hash_rows={hr}, U={U})"
-        )
-    T = tgt.shape[1]
-    TB = n_bucket_rows
-    if TB and (TB % 8 != 0 or btab.shape != (TB, LANES)):
-        raise ValueError(
-            f"n_bucket_rows must be a multiple of 8 matching btab's rows "
-            f"(got {TB}, btab {btab.shape})"
-        )
-    grid = (K // SB,)
-    rb = min(8, K)  # base block rows: sublane-divisible or full
-    if rb % SB != 0:
-        raise ValueError(f"SB must divide {rb} (got SB={SB}, K={K})")
-    base_spec = pl.BlockSpec((8, rb, LANES), lambda g: (0, (g * SB) // rb, 0),
-                             memory_space=pltpu.VMEM)
-    tab_spec = pl.BlockSpec((8, rows, LANES), lambda g: (0, 0, 0),
-                            memory_space=pltpu.VMEM)
-    tgt_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    btab_spec = pl.BlockSpec(btab.shape, lambda g: (0, 0),
-                             memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((SB, rows, LANES), lambda g: (g, 0, 0),
-                            memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        functools.partial(_brute_kernel, SB=SB, U=U, mode=mode,
-                          n_endo=n_endo, T=T, HR=hr, TB=TB),
-        out_shape=jax.ShapeDtypeStruct((K, rows, LANES), jnp.uint32),
-        grid=grid,
-        in_specs=[base_spec, base_spec, tab_spec, tab_spec, tgt_spec,
-                  btab_spec],
-        out_specs=out_spec,
-        scratch_shapes=[
-            pltpu.VMEM((8, SB * rows, LANES), jnp.uint32),
-            pltpu.VMEM((8, SB * rows, LANES), jnp.uint32),
-        ],
-        interpret=interpret,
-    )(bases_x, bases_y, tab_x, tab_y, tgt, btab)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("K", "U", "SB", "C", "mode", "n_endo", "interpret",
-                     "hash_rows", "n_bucket_rows"),
-)
-def pallas_brute_chunk(px, py, tab_x_lm, tab_y_lm, ax, ay, tgt, btab,
-                       *, K, U, SB, C, mode, n_endo, interpret=False,
-                       hash_rows=None, n_bucket_rows=0):
-    """px/py: (8,) limbs of the chunk's base point ((start)*G). tgt:
-    (4, T) uint32 interval bounds (pack_intervals); btab: bucketed
-    high-word table (pack_buckets) when n_bucket_rows > 0. Returns
-    (next_x, next_y, out) where
-    `out` is ONE packed int32 summary vector (single host transfer):
-        [cand_pos (C), cand_bits (C), n_deg (K), first_deg (K),
-         adv_deg (K), n_candidates (1)]
-    """
-    rep = lambda v: jnp.broadcast_to(v[:, None, None], (8, 1, LANES))
-    bx, by, nx, ny, adeg = pwalk.advance_chain(
-        rep(px), rep(py), rep(ax), rep(ay), K, interpret=interpret
-    )
-    hits = brute_walk_blocks(
-        bx, by, tab_x_lm, tab_y_lm, tgt, btab, U, SB, mode, n_endo,
-        interpret=interpret, hash_rows=hash_rows,
-        n_bucket_rows=n_bucket_rows,
-    )
-    rows2 = hits.reshape(-1, LANES)  # (K*U/128, 128)
-    qbits2 = rows2 & jnp.uint32((1 << 30) - 1)
-    degf = (rows2 >> 30) & 1
-    # hierarchical compaction: candidates are near-zero (the in-kernel
-    # compare has no false positives), so a full-width nonzero cumsum over
-    # K*U elements (~5 ms measured) is waste. Row-reduce first, compact
-    # the handful of interesting rows, then compact within them.
-    R = max(8, C // 32)  # row budget
-    rowflag = qbits2.max(axis=1)  # (K*U/128,)
-    n_rows_t = (rowflag != 0).sum().astype(jnp.int32)
-    nr = rows2.shape[0]
-    (rsel,) = jnp.nonzero(rowflag != 0, size=R, fill_value=nr)
-    rsel = rsel.astype(jnp.int32)
-    picked = qbits2[jnp.minimum(rsel, nr - 1)]  # (R, 128)
-    picked = jnp.where((rsel < nr)[:, None], picked, 0)
-    mask = (picked != 0).reshape(-1)
-    n = mask.sum().astype(jnp.int32)
-    # row overflow would silently drop candidates: force the host-rescan
-    # path by reporting an overflowing count
-    n = jnp.where(n_rows_t > R, jnp.int32(C + 1), n)
-    (ip,) = jnp.nonzero(mask, size=C, fill_value=R * LANES)
-    ip = ip.astype(jnp.int32)
-    ips = jnp.minimum(ip, R * LANES - 1)
-    bits = picked.reshape(-1)[ips]
-    pos = rsel[ips // LANES] * LANES + ips % LANES
-    pos = jnp.where(ip < R * LANES, pos, K * U)
-    bits = jnp.where(ip < R * LANES, bits, 0)
-    deg = degf.reshape(K, U)
-    n_deg = deg.sum(axis=1).astype(jnp.int32)
-    first_deg = jnp.argmax(deg, axis=1).astype(jnp.int32)
-    out = jnp.concatenate(
-        [
-            pos,
-            bits.astype(jnp.int32),
-            n_deg,
-            first_deg,
-            (adeg[:, 0] != 0).astype(jnp.int32),
-            n[None],
-        ]
-    )  # (2C + 3K + 1,)
-    return nx[:, 0, 0], ny[:, 0, 0], out
-
-
 @functools.partial(
     jax.jit,
     static_argnames=("K", "U", "C", "mode", "n_endo", "chain"),
 )
 def xla_brute_chunk(px, py, tab_x, tab_y, ax, ay, tgt,
                     *, K, U, C, mode, n_endo, chain=32):
-    """XLA twin of pallas_brute_chunk: identical packed summary
-    [cand_pos(C), cand_bits(C), n_deg(K), first_deg(K), adv_deg(K), n(1)]
-    from the same index algebra, built on the XLA walk + hash pipelines.
-
-    Exists for CPU meshes and tests: interpret-mode execution of the
-    fused kernel unrolls the Fermat inversion ladder into a ~250k-op XLA
-    graph whose CPU compile takes >1 h. Interval membership only (the
-    lane-bucketed large-T table stays kernel-only).
+    """One brute chunk from base P (the chunk's start scalar * G): walks
+    P + u*stride*G for K steps of U keys and returns (next_x, next_y,
+    out) where `out` is ONE packed int32 summary vector (single host
+    transfer):
+        [cand_pos (C), cand_bits (C), n_deg (K), first_deg (K),
+         adv_deg (K), n_candidates (1)]
 
     tab_x/tab_y: (U, 8) batch-major step table (u*stride*G, u = 1..U);
     tgt: (4, T) pack_intervals bounds; px/py/ax/ay: (8,) limbs."""
@@ -450,36 +149,11 @@ def xla_brute_chunk(px, py, tab_x, tab_y, ax, ay, tgt,
     return nx[0], ny[0], out
 
 
-def pack_buckets(vals64) -> np.ndarray:
-    """(Lmax, 128) uint32 bucketed HIGH words for the kernel's lane-
-    bucketed exact membership: 64-bit compare value v lands in lane
-    v & 127, storing (v >> 32). Lmax = largest bucket, rounded up to a
-    multiple of 8 (the kernel reads aligned 8-row blocks). Padding
-    repeats the bucket's first entry (a harmless duplicate compare);
-    empty buckets stay zero — a zero high word can only fire a spurious
-    candidate (p = 2^-32 per point), which exact host verification
-    removes, exactly like a 64-bit truncation collision."""
-    if not len(vals64):
-        raise ValueError("empty bucketed target set")
-    buckets: list = [[] for _ in range(LANES)]
-    for v in vals64:
-        v = int(v)
-        buckets[v & 127].append((v >> 32) & 0xFFFFFFFF)
-    lmax = max(8, -(-max(len(b) for b in buckets) // 8) * 8)
-    out = np.zeros((lmax, LANES), dtype=np.uint32)
-    for lane, vals in enumerate(buckets):
-        if not vals:
-            continue
-        for r in range(lmax):
-            out[r, lane] = vals[r] if r < len(vals) else vals[0]
-    return out
-
-
 def pack_intervals(lo64, hi64) -> np.ndarray:
     """(4, T_pad) uint32 interval bounds [lo_hi, lo_lo, hi_hi, hi_lo]
     from 64-bit big-endian lo/hi values; padded to the next power of two
-    (>= 8) by repeating entry 0 — bounds kernel recompiles per target-set
-    size while keeping the unrolled compare loop tight. Exact targets are
+    (>= 8) by repeating entry 0 — bounds recompiles per target-set size
+    while keeping the unrolled compare loop tight. Exact targets are
     point intervals (lo == hi)."""
     t = len(lo64)
     if t == 0:

@@ -1,395 +1,256 @@
-"""Pallas TPU kernels for the BSGS giant-step walk.
+"""BSGS giant-step walk chunk: two CUDA kernels called through the XLA
+foreign function interface, and their plain twin.
 
-Why kernels: the XLA walk pays per-HLO-op dispatch on long serial chains
-(the Fermat inversion ladder and per-step scan) — measured 6.5 ms/step at
-U = 8192 on v5e. In Pallas the same chains are straight-line vector code.
+A chunk walks T targets K steps of U giant steps each: the points
+P_t + s*ADV + u*S for s < K, u = 1..U, where ADV = U*S. Only the 64-bit
+x truncations (qlo, qhi) and degenerate-lane flags leave the chunk;
+membership (bitmap cascade and exact search) stays in XLA.
 
-Two-kernel restructure of the chunk (replaces the lax.scan of
-walk.walk_fused steps):
+- **Kernel A — bases.** base(t, s) = P_t + s*ADV for s = 1..K, as K
+  independent affine additions against a host table of s*ADV, each lane
+  with its own Fermat inversion. There is no serial chain: a chunk's
+  K*T bases are parallel lanes, and the last one (s = K) is the next
+  chunk's state. A lane where P_t == s*ADV takes the doubling slope
+  (the baby-table and filter builds hit it deterministically); a lane
+  where P_t == -s*ADV is the point at infinity and is flagged, which
+  the engines already treat as an advance degeneracy (exact rescan and
+  rebase).
+- **Kernel B — walk.** The grid covers all K*T*U additions: one thread
+  per table offset u and chain of CHAIN bases runs a Montgomery chain
+  over its CHAIN denominators (forward prefix products, ONE addition-
+  chain inversion, backward peel fused with the x-only emit), so the
+  Fermat ladder costs ~270/CHAIN multiplies per element on top of the
+  ~5 the walk needs.
 
-- **Kernel A — advance chain**: the K per-step base points are a serial
-  dependency (P_{s+1} = P_s + ADV). Computing them with per-step affine
-  adds would need one inversion per step; instead the chain runs in
-  Jacobian coordinates (8M+3S mixed adds, no inversions), then ALL K Z's
-  are batch-inverted with one addition-chain powering and normalized.
-  Per-chunk serial cost: ~11K muls + 1 powering, vs K powerings before.
-
-- **Kernel B — walk blocks**: with the K bases known, the K*U walk
-  additions are fully parallel. Grid over blocks of SB steps; each block
-  batch-inverts its SB*U denominators via grouped Montgomery chains
-  (fe_tiles.montgomery_inv_groups, one powering per block) and emits the
-  64-bit x-truncations (qhi/qlo) plus degenerate-lane masks.
-
-Membership (bitmap cascade + exact search) stays in XLA on the kernel
-outputs — gathers are XLA's job.
-
-Layout: everything limb-major (8, rows, 128) uint32 (fe_tiles).
-Kernel A carries up to 128 independent chains on its lanes (one per
-target — pallas_chunk_multi); kernel B receives bases pre-blocked
-(8, SB, 128) per grid step so T*K never caps VMEM, and uses real lane
-parallelism across the U offsets.
+The kernels are CUDA C++ (native/walk_kernels.cu, per-lane math in
+native/walk_math.h) with 32-bit limbs and 64-bit products, built with
+nvcc on first use. ``impl`` picks the route:
+  "cuda"  the GPU kernels;
+  "host"  the same C++ per-lane code on the CPU (native library), the
+          reference the CPU tests check against ecref;
+  "xla"   the same two-stage algorithm as whole-array ops on 16-bit limb
+          products (field/fe_tiles.py). It also runs on numpy arrays, as
+          a fast exact reference independent of the C++ code.
 
 Reference capability: the giant-step walk of thread_process_bsgs
-(keyhunt.cpp:3873-4002); the unwired CUDA kernel's per-step Fermat
-inversion (cuda/bsgs_kernel.cu:159-165) is exactly the design this
-avoids.
+(keyhunt.cpp:3873-4002).
 """
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple, Tuple
+import ctypes
+import threading
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from ..core import device
 from ..field import fe_tiles as ft
 
-LANES = 128
+CHAIN = 64  # bases per Montgomery chain in kernel B (<= 64, the kernel's cap)
+IMPLS = ("cuda", "host", "xla")
+_BASES, _BLOCKS = "KeyhuntWalkBases", "KeyhuntWalkBlocks"
+_registered = False
+_register_lock = threading.Lock()
+
+
+def _register_cuda() -> None:
+    """Build native/libkeyhunt_walk.so (first use) and register both
+    kernels as XLA FFI targets for the CUDA platform."""
+    global _registered
+    with _register_lock:
+        if _registered:
+            return
+        from .. import native
+
+        lib = ctypes.cdll.LoadLibrary(native.ensure_built(
+            target=native.WALK_LIB, sources=native.WALK_SOURCES,
+            make_vars=(f"JAX_INCLUDE={jax.ffi.include_dir()}",),
+        ))
+        for name in (_BASES, _BLOCKS):
+            jax.ffi.register_ffi_target(
+                name, jax.ffi.pycapsule(getattr(lib, name)), platform="CUDA"
+            )
+        _registered = True
+
+
+def _cuda_ready() -> None:
+    if device.on_gpu():  # off the card only lowering (tests) happens
+        _register_cuda()
 
 
 # ---------------------------------------------------------------------------
-# Kernel A: Jacobian advance chain + batched normalization
+# Per-lane math of the twin (native/walk_math.h holds the kernels' copy)
 # ---------------------------------------------------------------------------
 
 
-def _mixed_add(X, Y, Z, qx, qy):
-    """Jacobian P + affine Q (madd-2007-bl shape, 8M+3S) with a
-    branch-free Jacobian DOUBLING fallback (dbl-2009-l, a=0) for the
-    P == Q case — the baby-table build chain hits it deterministically
-    at its first advance (ub*G + ub*G). Returns (X3, Y3, Z3, inf) where
-    `inf` flags P == -Q (sum is the point at infinity): the result is
-    garbage and the caller must treat the lane as degenerate."""
-    z2 = ft.sqr(Z)
-    u2 = ft.mul(qx, z2)
-    s2 = ft.mul(qy, ft.mul(Z, z2))
-    h = ft.sub(u2, X)
-    r = ft.sub(s2, Y)
-    h_zero = ft.is_zero(h)
-    is_dbl = h_zero & ft.eq(s2, Y)
-    h = ft.select(h_zero, ft.one_like(h), h)
-    hh = ft.sqr(h)
-    v = ft.mul(X, hh)
-    hhh = ft.mul(h, hh)
-    x3 = ft.sub(ft.sub(ft.sqr(r), hhh), ft.dbl(v))
-    y3 = ft.sub(ft.mul(r, ft.sub(v, x3)), ft.mul(Y, hhh))
-    z3 = ft.mul(Z, h)
-    # doubling lane: 2P for a = 0 (secp256k1)
-    a_ = ft.sqr(X)
-    b_ = ft.sqr(Y)
-    c_ = ft.sqr(b_)
-    t = ft.sqr(ft.add(X, b_))
-    d_ = ft.dbl(ft.sub(ft.sub(t, a_), c_))
-    e_ = ft.add(ft.dbl(a_), a_)
-    xd = ft.sub(ft.sqr(e_), ft.dbl(d_))
-    yd = ft.sub(ft.mul(e_, ft.sub(d_, xd)), ft.dbl(ft.dbl(ft.dbl(c_))))
-    zd = ft.dbl(ft.mul(Y, Z))
-    x3 = ft.select(is_dbl, xd, x3)
-    y3 = ft.select(is_dbl, yd, y3)
-    z3 = ft.select(is_dbl, zd, z3)
-    return x3, y3, z3, h_zero & ~is_dbl
+def add_full(px, py, qx, qy):
+    """Affine P + Q with its own inversion -> (x, y, infinity).
+
+    P == Q takes the doubling slope 3x^2 / 2y; P == -Q is the point at
+    infinity (flagged; x, y are then meaningless)."""
+    dx = ft.sub(qx, px)
+    dy = ft.sub(qy, py)
+    dx0 = ft.is_zero(dx)
+    is_dbl = dx0 & ft.is_zero(dy)
+    xx = ft.sqr(px)
+    den = ft.select(is_dbl, ft.dbl(py), ft.select(dx0, ft.one_like(dx), dx))
+    num = ft.select(is_dbl, ft.add(ft.dbl(xx), xx), dy)
+    lam = ft.mul(num, ft.inv(den))
+    x3 = ft.sub(ft.sub(ft.sqr(lam), px), qx)
+    y3 = ft.sub(ft.mul(lam, ft.sub(px, x3)), py)
+    return x3, y3, dx0 & ~is_dbl
 
 
-def _advance_kernel(px_ref, py_ref, advx_ref, advy_ref,
-                    bx_ref, by_ref, deg_ref,
-                    xs, ys, zs, K: int):
-    """Scratch xs/ys/zs: (8, K, 128). Outputs: normalized chain points
-    P+ADV..P+K*ADV (8, K, 128) x2, adv_deg (K, 128) u32.
-
-    The K-step chain is a fori_loop (one mixed-add body) — an unrolled
-    chain of K mul-heavy bodies crashes/stalls the Mosaic compiler."""
-    qx = advx_ref[:, 0]
-    qy = advy_ref[:, 0]
-
-    def body(s, carry):
-        X, Y, Z = carry
-        X, Y, Z, hz = _mixed_add(X, Y, Z, qx, qy)
-        deg_ref[pl.ds(s, 1)] = hz.astype(jnp.uint32)[None]
-        # once degenerate, Z becomes 0 downstream; keep it invertible
-        Z = ft.select(ft.is_zero(Z), ft.one_like(Z), Z)
-        xs[:, pl.ds(s, 1), :] = X[:, None]
-        ys[:, pl.ds(s, 1), :] = Y[:, None]
-        zs[:, pl.ds(s, 1), :] = Z[:, None]
-        return X, Y, Z
-
-    X0, Y0 = px_ref[:, 0], py_ref[:, 0]
-    jax.lax.fori_loop(0, K, body, (X0, Y0, ft.one_like(X0)))
-    # batch-invert all K Z's: group chains over sublane-rows of 8
-    z_all = zs[:, :, :]
-    zinv = ft.montgomery_inv_groups(z_all, n_groups=max(1, K // 8))
-    zi2 = ft.sqr(zinv)
-    # rows 0..K-1 = normalized chain points P+ADV .. P+K*ADV; the caller
-    # shifts them into walk-base order in XLA (a sublane-offset write like
-    # bx_ref[:, 1:K] = ... crashes Mosaic's LLO lowering)
-    bx_ref[:, :, :] = ft.mul(xs[:, :, :], zi2)
-    by_ref[:, :, :] = ft.mul(ys[:, :, :], ft.mul(zinv, zi2))
+def walk_den(tx, bx):
+    """Denominator x(uS) - x(base), masked to 1 on degenerate lanes."""
+    dx = ft.sub(tx, bx)
+    deg = ft.is_zero(dx)
+    return ft.select(deg, ft.one_like(dx), dx), deg
 
 
-def advance_chain(px, py, adv_x, adv_y, K: int, interpret: bool = False):
-    """px/py: (8, 1, 128) lane-replicated affine base. adv_*: (8, 1, 128).
-    Returns walk bases (8, K, 128) x2 (row 0 = input state), next state
-    (8, 1, 128) x2, adv_deg (K, 128) u32."""
-    spec1 = pl.BlockSpec(memory_space=pltpu.VMEM)
-    out_shapes = (
-        jax.ShapeDtypeStruct((8, K, LANES), jnp.uint32),
-        jax.ShapeDtypeStruct((8, K, LANES), jnp.uint32),
-        jax.ShapeDtypeStruct((K, LANES), jnp.uint32),
-    )
-    cx, cy, adeg = pl.pallas_call(
-        functools.partial(_advance_kernel, K=K),
-        out_shape=out_shapes,
-        in_specs=[spec1] * 4,
-        out_specs=(spec1,) * 3,
-        scratch_shapes=[
-            pltpu.VMEM((8, K, LANES), jnp.uint32),
-            pltpu.VMEM((8, K, LANES), jnp.uint32),
-            pltpu.VMEM((8, K, LANES), jnp.uint32),
-        ],
-        interpret=interpret,
-    )(px, py, adv_x, adv_y)
-    # shift into walk-base order in XLA: base_0 = input, base_s = chain_{s-1}
-    bases_x = jnp.concatenate([px, cx[:, : K - 1]], axis=1)
-    bases_y = jnp.concatenate([py, cy[:, : K - 1]], axis=1)
-    next_x = cx[:, K - 1 :]
-    next_y = cy[:, K - 1 :]
-    return bases_x, bases_y, next_x, next_y, adeg
+def walk_x(tx, ty, bx, by, inv_dx):
+    """x of base + uS from the inverted denominator."""
+    lam = ft.mul(ft.sub(ty, by), inv_dx)
+    return ft.sub(ft.sub(ft.sqr(lam), bx), tx)
 
 
 # ---------------------------------------------------------------------------
-# Kernel B: parallel walk blocks
+# Kernel A: bases
 # ---------------------------------------------------------------------------
 
 
-def _group_inverse_inplace(dens, prefs, ng: int) -> None:
-    """Grouped-Montgomery batch inverse of the (8, ng*8, 128) denominators
-    in `dens`, IN PLACE (dens becomes the inverses), using `prefs` as the
-    prefix-product scratch. ONE addition-chain inversion total. Zero
-    denominators must have been masked to 1 by the caller."""
-    first = dens[:, pl.ds(0, 8), :]
-    prefs[:, pl.ds(0, 8), :] = first
+def add_lanes(px, py, qx, qy, impl: str):
+    """P + Q lane by lane: limb-major (8, n) operands -> (x, y) (8, n) and
+    infinity flags (n,)."""
+    n = px.shape[1]
+    if impl == "xla":
+        x3, y3, inf = add_full(ft.limbs(px), ft.limbs(py), ft.limbs(qx),
+                               ft.limbs(qy))
+        xp = ft.xp(px)
+        return xp.stack(x3), xp.stack(y3), inf
+    if impl == "host":
+        from .. import native
 
-    def fwd(gi, carry):
-        nxt = ft.mul(carry, dens[:, pl.ds(gi * 8, 8), :])
-        prefs[:, pl.ds(gi * 8, 8), :] = nxt
-        return nxt
-
-    total = jax.lax.fori_loop(1, ng, fwd, first)
-    running = ft.inv(total)
-
-    def bwd(i, carry):
-        gi = ng - 1 - i
-        x = dens[:, pl.ds(gi * 8, 8), :]
-        pv = prefs[:, pl.ds((gi - 1) * 8, 8), :]
-        inv_gi = ft.mul(carry, pv)
-        carry = ft.mul(carry, x)
-        dens[:, pl.ds(gi * 8, 8), :] = inv_gi  # reuse dens as the inverse buffer
-        return carry
-
-    running = jax.lax.fori_loop(0, ng - 1, bwd, running)
-    dens[:, pl.ds(0, 8), :] = running
-
-
-def _walk_kernel(bx_ref, by_ref, tabx_ref, taby_ref,
-                 qlo_ref, qhi_ref, deg_ref, dens, prefs, SB: int, U: int):
-    """One grid block: SB steps x U offsets. tab: (8, U/128, 128).
-    bases: full (8, K, 128) (lane-replicated rows), sliced by grid id.
-    Outputs (SB, U/128, 128). Scratch dens/prefs: (8, SB*rows, 128).
-
-    Every mul-heavy stage is a fori_loop over groups/steps — compact
-    kernel code (Mosaic chokes on hundreds of unrolled mul bodies).
-    """
-    rows = U // LANES
-    tx = tabx_ref[:, :, :]  # (8, rows, 128)
-    ty = taby_ref[:, :, :]
-    # bases arrive in (8, RB, 128) blocks (RB = min(8, K): Mosaic needs
-    # sublane-divisible blocks); this grid step's rows start at `off`
-    rb = bx_ref.shape[1]
-    off = (pl.program_id(0) * SB) % rb
-    # bases arrive pre-blocked (8, SB, 128): only this block's rows live
-    # in VMEM, so T*K (multi-target) no longer caps chunk size
-
-    def build(s, _):
-        bx = jnp.broadcast_to(bx_ref[:, pl.ds(off + s, 1), :], tx.shape)
-        dx = ft.sub(tx, bx)
-        degrow = ft.is_zero(dx)  # (rows, 128)
-        dx = ft.select(degrow, ft.one_like(dx), dx)
-        dens[:, pl.ds(s * rows, rows), :] = dx
-        deg_ref[pl.ds(s, 1)] = degrow.astype(jnp.uint32)[None]
-        return 0
-
-    jax.lax.fori_loop(0, SB, build, 0)
-    _group_inverse_inplace(dens, prefs, (SB * rows) // 8)
-
-    def emit(s, _):
-        bx = jnp.broadcast_to(bx_ref[:, pl.ds(off + s, 1), :], tx.shape)
-        by = jnp.broadcast_to(by_ref[:, pl.ds(off + s, 1), :], ty.shape)
-        inv_s = dens[:, pl.ds(s * rows, rows), :]
-        lam = ft.mul(ft.sub(ty, by), inv_s)
-        # only limbs 0/1 of x3 leave the kernel (64-bit truncation)
-        x3 = ft.sub(ft.sub(ft.sqr(lam), bx), tx)
-        qlo_ref[pl.ds(s, 1)] = x3[0][None]
-        qhi_ref[pl.ds(s, 1)] = x3[1][None]
-        return 0
-
-    jax.lax.fori_loop(0, SB, emit, 0)
-
-
-def walk_blocks(bases_x, bases_y, tab_x, tab_y, U: int, SB: int = 4,
-                interpret: bool = False):
-    """bases: (8, K, 128); tab: (8, U/128, 128). Returns qlo, qhi, deg
-    each (K, U/128, 128) uint32."""
-    K = bases_x.shape[1]
-    assert K % SB == 0, (K, SB)
-    rows = U // LANES
-    if (SB * rows) % 8 != 0 or SB * rows < 8:
-        raise ValueError(
-            f"walk_blocks needs SB*U/128 to be a positive multiple of 8 "
-            f"(got SB={SB}, U={U}): the Montgomery grouping would be empty"
-        )
-    grid = (K // SB,)
-    rb = min(8, K)  # base block rows: sublane-divisible or full
-    if rb % SB != 0:
-        raise ValueError(f"SB must divide {rb} (got SB={SB}, K={K})")
-    base_spec = pl.BlockSpec((8, rb, LANES), lambda g: (0, (g * SB) // rb, 0),
-                             memory_space=pltpu.VMEM)
-    tab_spec = pl.BlockSpec((8, rows, LANES), lambda g: (0, 0, 0),
-                            memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((SB, rows, LANES), lambda g: (g, 0, 0),
-                            memory_space=pltpu.VMEM)
-    out_shapes = tuple(
-        jax.ShapeDtypeStruct((K, rows, LANES), jnp.uint32) for _ in range(3)
-    )
-    return pl.pallas_call(
-        functools.partial(_walk_kernel, SB=SB, U=U),
-        out_shape=out_shapes,
-        grid=grid,
-        in_specs=[base_spec, base_spec, tab_spec, tab_spec],
-        out_specs=(out_spec,) * 3,
-        scratch_shapes=[
-            pltpu.VMEM((8, SB * rows, LANES), jnp.uint32),
-            pltpu.VMEM((8, SB * rows, LANES), jnp.uint32),
-        ],
-        interpret=interpret,
-    )(bases_x, bases_y, tab_x, tab_y)
+        ox, oy = np.empty((8, n), np.uint32), np.empty((8, n), np.uint32)
+        inf = np.empty(n, np.uint8)
+        native.require().kh_walk_bases_ref(
+            *(_ptr(np.ascontiguousarray(a, np.uint32))
+              for a in (px, py, qx, qy)),
+            _ptr(ox), _ptr(oy), _ptr(inf), n)
+        return ox, oy, inf != 0
+    _cuda_ready()
+    u32 = jax.ShapeDtypeStruct((8, n), jnp.uint32)
+    ox, oy, inf = jax.ffi.ffi_call(
+        _BASES, (u32, u32, jax.ShapeDtypeStruct((n,), jnp.uint8))
+    )(px, py, qx, qy)
+    return ox, oy, inf != 0
 
 
 # ---------------------------------------------------------------------------
-# Host-facing chunk: kernels + layout glue
+# Kernel B: walk
 # ---------------------------------------------------------------------------
 
 
-class PallasChunkResult(NamedTuple):
-    next_x: jnp.ndarray  # (8,) uint32 limbs (batch-major order)
+def walk_blocks(bx, by, tx, ty, impl: str):
+    """bases (8, nb), table (8, u) limb-major -> qlo, qhi, deg (nb, u)."""
+    nb, u = bx.shape[1], tx.shape[1]
+    chain = _pow2_divisor(nb, CHAIN)
+    if impl == "xla":
+        return _walk_blocks_xla(bx, by, tx, ty, chain)
+    if impl == "host":
+        from .. import native
+
+        qlo, qhi = np.empty((nb, u), np.uint32), np.empty((nb, u), np.uint32)
+        deg = np.empty((nb, u), np.uint8)
+        rc = native.require().kh_walk_blocks_ref(
+            *(_ptr(np.ascontiguousarray(a, np.uint32))
+              for a in (bx, by, tx, ty)),
+            _ptr(qlo), _ptr(qhi), _ptr(deg), nb, u, chain)
+        if rc != 0:
+            raise ValueError(f"kh_walk_blocks_ref rejected chain={chain}")
+        return qlo, qhi, deg != 0
+    _cuda_ready()
+    u32 = jax.ShapeDtypeStruct((nb, u), jnp.uint32)
+    qlo, qhi, deg = jax.ffi.ffi_call(
+        _BLOCKS, (u32, u32, jax.ShapeDtypeStruct((nb, u), jnp.uint8))
+    )(bx, by, tx, ty, chain=np.int64(chain))
+    return qlo, qhi, deg != 0
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _walk_blocks_xla(bx, by, tx, ty, chain: int):
+    """Kernel B's algorithm over whole arrays: chains run along the base
+    axis in groups of `chain`, exactly as the kernel's threads do."""
+    nb, u = bx.shape[1], tx.shape[1]
+    shape = (chain, nb // chain, u)
+    xp = ft.xp(bx)
+
+    def bases(a):  # (8, nb) -> limbs (chain, nb/chain, u), b = c*chain + g
+        a = a.reshape(8, nb // chain, chain).transpose(0, 2, 1)[..., None]
+        return tuple(xp.broadcast_to(a[k], shape) for k in range(8))
+
+    def table(a):
+        return tuple(xp.broadcast_to(a[k], shape) for k in range(8))
+
+    txl, tyl, bxl, byl = table(tx), table(ty), bases(bx), bases(by)
+    dx, deg = walk_den(txl, bxl)
+    x3 = walk_x(txl, tyl, bxl, byl, ft.chain_inverse(dx))
+
+    def rows(a):  # (chain, nb/chain, u) -> (nb, u)
+        return a.transpose(1, 0, 2).reshape(nb, u)
+
+    return rows(x3[0]), rows(x3[1]), rows(deg)
+
+
+# ---------------------------------------------------------------------------
+# Chunk: both kernels + layout glue
+# ---------------------------------------------------------------------------
+
+
+class WalkChunk(NamedTuple):
+    next_x: jnp.ndarray  # (T, 8) uint32 limbs: P_t + K*ADV
     next_y: jnp.ndarray
-    qhi: jnp.ndarray  # (K, U) uint32
-    qlo: jnp.ndarray  # (K, U) uint32
-    degenerate: jnp.ndarray  # (K, U) bool
-    adv_degenerate: jnp.ndarray  # (K,) bool
-
-
-def pallas_chunk(px, py, tab_x_lm, tab_y_lm, adv_x_lm, adv_y_lm,
-                 K: int, U: int, SB: int = 4,
-                 interpret: bool = False) -> PallasChunkResult:
-    """px/py: (8,) uint32 limbs of the single target's base point.
-    tab_*_lm: (8, U/128, 128) limb-major offset table. adv_*_lm: (8,).
-    """
-    rep = lambda v: jnp.broadcast_to(v[:, None, None], (8, 1, LANES))
-    bx, by, nx, ny, adeg = advance_chain(
-        rep(px), rep(py), rep(adv_x_lm), rep(adv_y_lm), K, interpret=interpret
-    )
-    qlo, qhi, deg = walk_blocks(bx, by, tab_x_lm, tab_y_lm, U, SB=SB,
-                                interpret=interpret)
-    return PallasChunkResult(
-        nx[:, 0, 0],
-        ny[:, 0, 0],
-        qhi.reshape(K, U),
-        qlo.reshape(K, U),
-        deg.reshape(K, U) != 0,
-        adeg[:, 0] != 0,
-    )
-
-
-def table_to_limb_major(tab_bm: np.ndarray) -> jnp.ndarray:
-    """(U, 8) host batch-major table -> (8, U/128, 128) device limb-major."""
-    u = tab_bm.shape[0]
-    return jnp.asarray(np.ascontiguousarray(tab_bm.T).reshape(8, u // LANES, LANES))
-
-
-# ---------------------------------------------------------------------------
-# Multi-target chunk: T independent walks sharing ONE advance-chain kernel
-# ---------------------------------------------------------------------------
-
-
-class PallasChunkMultiResult(NamedTuple):
-    next_x: jnp.ndarray  # (T, 8) uint32 limbs
-    next_y: jnp.ndarray
-    qhi: jnp.ndarray  # (T*K, U) uint32, block index = t*K + s
+    qhi: jnp.ndarray  # (T*K, U) uint32, row = t*K + s
     qlo: jnp.ndarray
     degenerate: jnp.ndarray  # (T*K, U) bool
-    adv_degenerate: jnp.ndarray  # (T, K) bool
+    adv_degenerate: jnp.ndarray  # (T, K) bool: P_t + (s+1)*ADV is infinity
 
 
-def pallas_chunk_multi(px_bm, py_bm, tab_x_lm, tab_y_lm, adv_x_lm, adv_y_lm,
-                       K: int, U: int, T: int, SB: int = 4,
-                       interpret: bool = False) -> PallasChunkMultiResult:
-    """px/py: (T, 8) limbs, one target walk base per row.
+def walk_chunk(px, py, tab_x, tab_y, adv_x, adv_y, *, impl: str
+               ) -> WalkChunk:
+    """px/py: (T, 8) batch-major walk bases. tab_*: (8, U) limb-major
+    offsets u*S, u = 1..U. adv_*: (8, K) limb-major s*ADV, s = 1..K."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
+    T, K, U = px.shape[0], adv_x.shape[1], tab_x.shape[1]
+    xp = ft.xp(px)
+    rep = lambda p: xp.broadcast_to(p.T[:, :, None], (8, T, K)).reshape(8, -1)
+    til = lambda a: xp.broadcast_to(a[:, None, :], (8, T, K)).reshape(8, -1)
+    qx, qy, inf = add_lanes(rep(px), rep(py), til(adv_x), til(adv_y), impl)
+    qx, qy = qx.reshape(8, T, K), qy.reshape(8, T, K)
+    # base(t, 0) = P_t; base(t, s) = P_t + s*ADV = q(t, s-1)
+    bx = xp.concatenate([px.T[:, :, None], qx[:, :, : K - 1]], axis=2)
+    by = xp.concatenate([py.T[:, :, None], qy[:, :, : K - 1]], axis=2)
+    qlo, qhi, deg = walk_blocks(bx.reshape(8, -1), by.reshape(8, -1),
+                                tab_x, tab_y, impl)
+    return WalkChunk(qx[:, :, K - 1].T, qy[:, :, K - 1].T, qhi, qlo, deg,
+                     inf.reshape(T, K))
 
-    The advance chain is elementwise across lanes, so ALL T chains run in
-    ONE kernel-A call with target t in lane t (the lane replication of the
-    single-target path was redundant compute anyway). The walk kernel then
-    grids over T*K blocks — total query count scales with T, matching the
-    reference's per-pubkey hot loop (keyhunt.cpp:3859-3869), but the
-    serial chain cost is shared.
 
-    T > 128 splits into lane-width groups, one kernel-A call each, and
-    concatenates block rows in group order — identical global t*K + s
-    block indexing, so callers never see the grouping. Memory (not lane
-    count) becomes the cap: the query arrays grow as T*K*U words.
-    """
-    if T > LANES:
-        parts = [
-            pallas_chunk_multi(
-                px_bm[g : g + LANES], py_bm[g : g + LANES],
-                tab_x_lm, tab_y_lm, adv_x_lm, adv_y_lm,
-                K=K, U=U, T=min(LANES, T - g), SB=SB, interpret=interpret,
-            )
-            for g in range(0, T, LANES)
-        ]
-        cat = lambda xs: jnp.concatenate(xs, axis=0)
-        return PallasChunkMultiResult(
-            cat([p.next_x for p in parts]),
-            cat([p.next_y for p in parts]),
-            cat([p.qhi for p in parts]),
-            cat([p.qlo for p in parts]),
-            cat([p.degenerate for p in parts]),
-            cat([p.adv_degenerate for p in parts]),
-        )
-    # lane-pack: lane t carries target t; pad lanes repeat target 0
-    pad = jnp.broadcast_to(px_bm[0][:, None], (8, LANES - T))
-    px_l = jnp.concatenate([jnp.transpose(px_bm, (1, 0)), pad], axis=1)[:, None, :]
-    pad = jnp.broadcast_to(py_bm[0][:, None], (8, LANES - T))
-    py_l = jnp.concatenate([jnp.transpose(py_bm, (1, 0)), pad], axis=1)[:, None, :]
-    rep = lambda v: jnp.broadcast_to(v[:, None, None], (8, 1, LANES))
-    bx, by, nx, ny, adeg = advance_chain(
-        px_l, py_l, rep(adv_x_lm), rep(adv_y_lm), K, interpret=interpret
-    )
-    # per-target lane-broadcast bases: (8, T*K, 128), block i = t*K + s
-    bxs = [jnp.broadcast_to(bx[:, :, t : t + 1], bx.shape[:2] + (LANES,))
-           for t in range(T)]
-    bys = [jnp.broadcast_to(by[:, :, t : t + 1], by.shape[:2] + (LANES,))
-           for t in range(T)]
-    bx_all = jnp.concatenate(bxs, axis=1)
-    by_all = jnp.concatenate(bys, axis=1)
-    qlo, qhi, deg = walk_blocks(bx_all, by_all, tab_x_lm, tab_y_lm, U, SB=SB,
-                                interpret=interpret)
-    return PallasChunkMultiResult(
-        jnp.transpose(nx[:, 0, :T], (1, 0)),
-        jnp.transpose(ny[:, 0, :T], (1, 0)),
-        qhi.reshape(T * K, U),
-        qlo.reshape(T * K, U),
-        deg.reshape(T * K, U) != 0,
-        jnp.transpose(adeg[:, :T], (1, 0)) != 0,
-    )
+def limb_major(tab_bm) -> jnp.ndarray:
+    """(n, 8) host batch-major table -> (8, n) device limb-major."""
+    return jnp.asarray(np.ascontiguousarray(np.asarray(tab_bm).T))
+
+
+def _pow2_divisor(n: int, cap: int) -> int:
+    """Largest power of two <= cap dividing n."""
+    d = 1
+    while d * 2 <= cap and n % (d * 2) == 0:
+        d *= 2
+    return d

@@ -1,7 +1,7 @@
 """Host-side exact precomputation of curve constant tables.
 
 Tables are built once with exact python-int arithmetic (ref/ecref.py) and
-uploaded to the device as uint32 limb constants — the TPU analog of the
+uploaded to the device as uint32 limb constants — the device analog of the
 reference's GTable build at startup (secp256k1/SECP256K1.cpp:29-56) and
 the Gn/GSn/AMP stride tables (keyhunt.cpp:4386-4399, 1320-1364).
 

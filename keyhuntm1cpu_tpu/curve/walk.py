@@ -1,6 +1,6 @@
 """The universal group walk — X-only one-to-many point addition.
 
-This is the TPU re-design of the reference's single hot loop (the
+This is the batched re-design of the reference's single hot loop (the
 "group walk" shared by every search mode, e.g. keyhunt.cpp:3873-3999 for
 BSGS giant steps, :2593-2711 for address search, :4437-4492 for baby-table
 build): walk many consecutive curve points from a center using ONE batched
@@ -156,8 +156,9 @@ def walk_fused(
 
     This removes the serial Fermat ladder a standalone `advance` pays per
     device step (the reference never hits this because its CPU ModInv is
-    cheap relative to its batch; on TPU the tiny-batch inversion was ~50x
-    the cost of the whole walk). adv_x/adv_y: (8,) affine coords of the
+    cheap relative to its batch; on an accelerator a tiny-batch inversion
+    is a long serial ladder that dwarfs the whole walk). adv_x/adv_y: (8,)
+    affine coords of the
     advance offset ADV (e.g. U*S for BSGS giant blocks, (2U+1)*stride*G
     for brute windows).
 

@@ -293,7 +293,7 @@ def rpc(host: str, port: int, req: dict, timeout: float = 10.0) -> dict:
 def main(argv=None):
     import argparse
 
-    p = argparse.ArgumentParser(prog="keyhunt-tpu-coordinator")
+    p = argparse.ArgumentParser(prog="keyhunt-coordinator")
     p.add_argument("-i", "--ip", default="0.0.0.0")
     p.add_argument("-p", "--port", type=int, default=17890)
     p.add_argument("-r", "--range", required=True, help="start:end hex")

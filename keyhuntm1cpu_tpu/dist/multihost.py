@@ -5,9 +5,9 @@ external client orchestrating ranges (bsgsd.cpp:1318-1381, BSGSD.md:98-102);
 its WorkCoordinator/DistributedWorker scaffolding has no bodies
 (include/keyhunt/core/distributed.h). Here multi-host is first-class:
 
-- `initialize()` wraps jax.distributed.initialize — on TPU pods each host
-  sees its local chips after this; on CPU it builds a multi-process test
-  mesh (the same path the 2-process pytest uses).
+- `initialize()` wraps jax.distributed.initialize — on a GPU cluster each
+  host sees its local cards after this; on CPU it builds a multi-process
+  test mesh (the same path the 2-process pytest uses).
 - `process_slice()` assigns each process a disjoint window-aligned slice
   of the scalar range via RangePartitioner — the deterministic replacement
   for the reference's mutex range claim (keyhunt.cpp:3824-3841).
@@ -91,7 +91,7 @@ def search_bsgs_multihost(
     with the baby table sharded 1/D per device (ShardedTableBSGSEngine):
     the two-tier layout of SURVEY §2.4 — range slices across hosts over
     the control plane / DCN, one big membership structure striped across
-    each host's chips over ICI — so m scales with local chip count while
+    each host's cards — so m scales with local card count while
     hosts stay lock-free.
     """
     window = params.block_u * 2 * params.m
@@ -142,7 +142,7 @@ def main(argv=None) -> int:
     from ..engine.common import write_found_key
     from ..utils.targets import parse_target_file
 
-    p = argparse.ArgumentParser(prog="keyhunt-tpu-multihost")
+    p = argparse.ArgumentParser(prog="keyhunt-multihost")
     p.add_argument("--coordinator", default=None,
                    help="jax.distributed coordinator host:port")
     p.add_argument("--num-processes", type=int, default=None)
@@ -173,8 +173,10 @@ def main(argv=None) -> int:
         args.m_babies = resolve_m(args.m_babies, args.n_value, args.k_factor)
     except ValueError as e:
         p.error(str(e))
+    from ..core import device
     from ..engine.common import install_stop_handlers
 
+    device.enable_compile_cache()
     install_stop_handlers()  # SIGTERM: finish chunk, report, exit clean
     initialize(args.coordinator, args.num_processes, args.process_id)
     a, b = (int(x, 16) for x in args.range.split(":", 1))

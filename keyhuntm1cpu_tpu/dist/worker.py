@@ -166,7 +166,7 @@ def main(argv=None):
     from ..utils.targets import parse_target_file
     from ..engine.bsgs import BSGSParams
 
-    p = argparse.ArgumentParser(prog="keyhunt-tpu-worker")
+    p = argparse.ArgumentParser(prog="keyhunt-worker")
     p.add_argument("-c", "--coordinator", required=True, help="host:port")
     p.add_argument("-f", "--file", default=None,
                    help="target file (pubkeys for bsgs; addresses/"
@@ -186,7 +186,7 @@ def main(argv=None):
                    help="vanity address prefix (repeatable) — composes "
                         "with rmd160/address targets in the same scan; "
                         "with no -f targets, scans prefixes alone "
-                        "(fused-kernel path: TPU workers)")
+                        "(fused path)")
     p.add_argument("--m-babies", type=int, default=None)
     p.add_argument("-k", "--k-factor", type=int, default=1,
                    help="m = sqrt(N) * k (reference -k)")
@@ -194,8 +194,10 @@ def main(argv=None):
     p.add_argument("-u", "--block-u", type=int, default=4096)
     p.add_argument("--chunk-steps", type=int, default=8)
     args = p.parse_args(argv)
+    from ..core import device
     from ..engine.common import install_stop_handlers
 
+    device.enable_compile_cache()
     install_stop_handlers()  # SIGTERM: finish chunk, requeue unit, exit
     host, port = args.coordinator.rsplit(":", 1)
     if args.mode in ("bsgs", "minikeys") and not args.file:

@@ -5,7 +5,7 @@ addvanity :5837-5957, vanityrmdmatch :5775-5801): a base58 prefix maps to
 one or more [lo, hi] intervals of 20-byte hash160 values; the scan walks
 keys and flags any hash160 falling inside an interval.
 
-TPU design: the brute-force group walk + both-parity hash160 pipeline,
+Design: the brute-force group walk + both-parity hash160 pipeline,
 but membership = interval compare against a handful of (5-word big-endian)
 bounds — pure lane compares, no gathers at all. Every device hit is
 re-verified on host by actual base58 prefix match.

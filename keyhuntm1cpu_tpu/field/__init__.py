@@ -1,11 +1,11 @@
-"""256-bit modular field arithmetic, vectorized for TPU lanes.
+"""256-bit modular field arithmetic, vectorized over batches.
 
 Layout: a field element batch is a uint32 array of shape ``(..., 8)`` —
 little-endian 32-bit limbs (limb 0 = least significant). All operations are
-batch-uniform and branch-free so they vectorize over the VPU's 8x128 lanes
-and stay inside a single XLA fusion.
+batch-uniform and branch-free so they vectorize over the batch and fuse
+in XLA.
 
-This re-implements (TPU-first, not a translation) the capability of the
+This re-implements (not a translation) the capability of the
 reference's fixed-width bignum layer: secp256k1/Int.h, secp256k1/IntMod.cpp
 (ModMulK1/ModSquareK1/ModInv/ModSqrt) and secp256k1/IntGroup.cpp (batched
 Montgomery-trick inversion).

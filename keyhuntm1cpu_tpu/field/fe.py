@@ -1,12 +1,12 @@
 """Vectorized 256-bit arithmetic mod the secp256k1 field prime p.
 
-Design (TPU-first):
+Design:
 
 - Canonical storage: ``(..., 8)`` uint32, little-endian limbs, value < p.
 - Multiplication runs in a 16-bit "split" domain: each operand becomes 16
   half-limbs of 16 bits held in uint32 lanes, so every partial product
-  ``a16[i] * b16[j] < 2^32`` is exact in a uint32 lane — no mulhi
-  instruction needed (TPUs have no 64-bit integer lanes). Column sums stay
+  ``a16[i] * b16[j] < 2^32`` is exact in a uint32 lane — XLA has no
+  32x32->64 multiply on uint32 without 64-bit mode. Column sums stay
   far below 2^32 (<= 32 terms of < 2^16 after hi/lo splitting), so a single
   carry-propagation pass at the end is exact.
 - Reduction uses 2^256 ≡ 2^32 + 0x3D1 (mod p): two folds plus a
@@ -30,29 +30,29 @@ from __future__ import annotations
 from functools import partial
 from typing import List, Sequence
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-import os
+from ..core import device
 
 LIMBS = 8  # 8 x 32-bit limbs
 HALF_LIMBS = 16  # 16 x 16-bit half-limbs (multiplication domain)
 
 # Graph-shape strategy: "unroll" emits pure elementwise chains that XLA
-# fuses into a single pass over the batch (fastest on TPU, bigger graphs);
-# "scan" wraps serial chains in lax.scan (tiny graphs, fast compiles —
-# right for the CPU test mesh). Both compute identical results; the test
-# suite runs the scan path and bench.py asserts bit-exact key recovery on
-# the unroll path.
+# fuses into a single pass over the batch (bigger graphs); "scan" wraps
+# serial chains in lax.scan (tiny graphs, fast compiles — right for the
+# CPU, where unrolled graphs take minutes to compile). Both compute
+# identical results. "auto" unrolls on the GPU (PERF.md, fe unroll vs
+# scan); KEYHUNT_FE_UNROLL overrides.
 UNROLL = os.environ.get("KEYHUNT_FE_UNROLL", "auto")
 
 
 def _use_unroll() -> bool:
     if UNROLL == "auto":
-        import jax
-
-        return jax.default_backend() != "cpu"
+        return device.on_gpu()
     return UNROLL not in ("0", "false", "scan")
 
 P_INT = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEFFFFFC2F
@@ -380,8 +380,7 @@ def mul_mod_p(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def sqr_mod_p(a: jnp.ndarray) -> jnp.ndarray:
-    """(a * a) mod p. (Squaring symmetry optimization left to a Pallas
-    kernel pass; XLA CSEs the duplicated half-limb loads well enough.)"""
+    """(a * a) mod p (XLA CSEs the duplicated half-limb loads)."""
     a16 = _to16(a)
     return _reduce512(_mul_columns(a16, a16))
 
@@ -422,26 +421,6 @@ def inv_mod_p(a: jnp.ndarray) -> jnp.ndarray:
     return pow_mod_p(a, P_INT - 2)
 
 
-def _use_pallas_inv() -> bool:
-    if os.environ.get("KEYHUNT_PALLAS_INV", "auto") in ("0", "false", "off"):
-        return False
-    import jax
-
-    return jax.default_backend() != "cpu"
-
-
-def inv_mod_p_fast(a: jnp.ndarray) -> jnp.ndarray:
-    """Elementwise modular inverse choosing the fastest backend: on TPU a
-    Pallas kernel runs the secp256k1 addition chain as straight-line
-    vector code (~0.2 ms), where the XLA scan ladder pays per-HLO-op
-    overhead on all ~380 serial steps (~6 ms at typical widths)."""
-    if not _use_pallas_inv():
-        return inv_mod_p(a)
-    from . import pinv
-
-    return pinv.inv_batch(a)
-
-
 def sqrt_mod_p(a: jnp.ndarray) -> jnp.ndarray:
     """a^((p+1)/4); valid square root only when a is a QR (caller checks
     by squaring). Reference capability: secp256k1/IntMod.cpp:578 ModSqrt."""
@@ -480,7 +459,7 @@ def batch_inv_mod_p(a: jnp.ndarray, chain_len: int = 32) -> jnp.ndarray:
     total, prefixes = jax.lax.scan(fwd, one, chains)  # prefixes[i] = a0..ai
 
     # one batched inversion of the chain totals (width C)
-    running = inv_mod_p_fast(total)  # (C, 8)
+    running = inv_mod_p(total)  # (C, 8)
 
     # backward substitution: inv(a_i) = running_i * prefix[i-1]
     prev_prefixes = jnp.concatenate([one[None], prefixes[:-1]], axis=0)

@@ -10,8 +10,8 @@ Keys here are fixed 8-byte (uint64) truncated X values / hash prefixes, so
 XXH64 specializes to its <32-byte small path — implemented vectorized over
 numpy uint64 lanes. Build/check run on host (numpy); the engines' device
 path uses filter/sorted_table.py. Role: the memory-frugal membership for
-HUGE target sets that must not live in HBM — measured at n = 10M targets
-(scripts/bench_bloom.py): 36 MB here vs 120 MB sorted table + 8.6 GB
+HUGE target sets that must not live in device memory — at n = 10M
+targets (host-measured): 36 MB here vs 120 MB sorted table + 8.6 GB
 device bitmap; 0.4-0.6M probes/s host-side, right for dist/ workers
 pre-filtering candidates before the exact host set. The 32-byte-message
 variant backing reference file interop lives in utils/legacy.py;

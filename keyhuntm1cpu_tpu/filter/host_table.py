@@ -1,20 +1,20 @@
 """Host-resident exact baby table for BSGS host-resolution mode.
 
-The TPU keeps only the probabilistic filters (direct-address bitmap +
+The device keeps only the probabilistic filters (direct-address bitmap +
 hashed bloom, filter/bitmap.py); exact membership + baby-index payload
 resolution happens HERE, on the host, against a sorted uint64 key plane
-via np.searchsorted. Rationale (docs/PERF.md "HBM diet"): the
-device-resident sorted table costs 12 bytes/key of HBM (3.2 GB at
-m=2^28, the binding constraint past m=2^28), while cascade survivors
-are ~dozens-to-thousands per multi-million-query chunk — a workload
-numpy resolves in microseconds. Capability analog: the reference's
-bPtable + bsgs_thirdcheck binary search (keyhunt.cpp:1366-1371,
-:3748-3775), with the final exact level moved off-accelerator.
+via np.searchsorted. Rationale: the device-resident sorted table costs
+12 bytes/key of device memory (12 GiB at m = 2^30), while cascade
+survivors are ~dozens-to-thousands per multi-million-query chunk — a
+workload numpy resolves in microseconds. Capability analog: the
+reference's bPtable + bsgs_thirdcheck binary search
+(keyhunt.cpp:1366-1371, :3748-3775), with the final exact level moved
+off-accelerator.
 
 The table is built by the native C++ builder (native/keyhunt_host.cpp
 kh_baby_build: batched group walk, one modular inversion per 1024-lane
-block) — ~3M keys/s on one host core — and cached on disk as two raw
-planes plus a JSON meta sidecar, so production boots mmap it in O(1):
+block, on one host core) and cached on disk as two raw planes plus a
+JSON meta sidecar, so production boots mmap it in O(1):
 
     baby_{m}.keys  (m,) uint64 LE  sorted trunc64(x(j*G))
     baby_{m}.idx   (m,) uint32 LE  payload j-1
@@ -37,28 +37,10 @@ DEFAULT_CACHE_DIR = os.environ.get(
                                         ".table_cache")
 )
 
-_LIB = None
-
-
 def _native():
-    global _LIB
-    if _LIB is None:
-        path = os.path.join(
-            os.path.dirname(__file__), "..", "..", "native",
-            "libkeyhunt_host.so",
-        )
-        lib = ctypes.CDLL(os.path.abspath(path))
-        lib.kh_baby_build.argtypes = [
-            ctypes.c_uint64, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int
-        ]
-        lib.kh_baby_build.restype = ctypes.c_int
-        lib.kh_baby_keys_range.argtypes = [
-            ctypes.c_uint64, ctypes.c_uint64,
-            ctypes.POINTER(ctypes.c_uint64),
-        ]
-        lib.kh_baby_keys_range.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    from .. import native
+
+    return native.require()
 
 
 def native_keys_range(from_j: int, count: int) -> np.ndarray:
@@ -219,8 +201,8 @@ def load_host_table(m: int, cache_dir: str = DEFAULT_CACHE_DIR,
 def ensure_host_table(m: int, cache_dir: str = DEFAULT_CACHE_DIR,
                       mmap: bool = True,
                       progress: bool = False) -> HostTable:
-    """Cached load or native build (m=2^30 ~ 6 min on this host's single
-    core — run scripts/build_host_table.py ahead of time for big m)."""
+    """Cached load or native build (one core: minutes at
+    m = 2^30 — run scripts/build_host_table.py ahead of time for big m)."""
     t = load_host_table(m, cache_dir, mmap=mmap)
     if t is not None:
         return t

@@ -1,6 +1,6 @@
 """Vectorized Keccak-256 of the 64-byte x||y pubkey (ETH addresses).
 
-TPUs have no 64-bit integer lanes, so every Keccak lane is an emulated
+Without 64-bit mode JAX has no 64-bit integer arrays, so every Keccak lane is an emulated
 (hi, lo) uint32 pair; rotations split across the pair. Single absorb
 (64 < rate 136), 24 statically-unrolled rounds. Capability of the
 reference's sha3/ Keccak + generate_binaddress_eth (keyhunt.cpp:4783-4791).

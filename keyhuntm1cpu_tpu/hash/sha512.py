@@ -2,7 +2,7 @@
 
 Capability parity with the reference's hash/sha512.cpp (brainwallet
 lineage — "present for completeness; not in hot path", SURVEY.md §2.1
-#10). TPUs have no 64-bit integer lanes, so every 64-bit word is a
+#10). Without 64-bit mode JAX has no 64-bit integer arrays, so every 64-bit word is a
 (hi, lo) pair of uint32 lanes; rotations split across the pair and adds
 carry lo -> hi. Compression is a lax.scan over the 80 rounds (same
 graph-size discipline as sha256.py).

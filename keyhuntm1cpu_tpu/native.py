@@ -2,36 +2,78 @@
 
 The native library provides the host-side runtime the reference implements
 in C++ (exact secp256k1 verification, hash160, base58check target
-parsing). Falls back to the pure-python golden reference when the .so is
-missing, so nothing hard-depends on the toolchain.
-
-Build: make -C native
+parsing, the host baby-table builder, the host reference of the GPU walk
+kernels). It is built from native/Makefile on first use (ensure_built)
+into native/libkeyhunt_host.so, which git does not track; a fresh
+checkout therefore pays one compile (a few seconds) as set-up time. The
+GPU walk kernels build the same way (pwalk, nvcc). Where no compiler exists the verification helpers fall back
+to the pure-python golden reference; the host baby table needs the
+library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "native",
-    "libkeyhunt_host.so",
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
 )
+LIB_NAME = "libkeyhunt_host.so"
+SOURCE_NAME = "keyhunt_host.cpp"
+LIB_SOURCES = (SOURCE_NAME, "walk_math.h")
+# GPU walk kernels (curve/pwalk.py), built by nvcc on the first GPU run
+WALK_LIB = "libkeyhunt_walk.so"
+WALK_SOURCES = ("walk_kernels.cu", "walk_math.h")
 
 _lib = None
 
 
+def ensure_built(native_dir: str = NATIVE_DIR, target: str = LIB_NAME,
+                 sources=LIB_SOURCES, make_vars=()) -> str:
+    """Path of `target`, built with `make` when it is missing or older
+    than one of its sources. A file lock serializes concurrent first
+    uses (test workers, fleet processes sharing one checkout)."""
+    lib = os.path.join(native_dir, target)
+
+    def stale() -> bool:
+        if not os.path.exists(lib):
+            return True
+        built = os.path.getmtime(lib)
+        return any(os.path.getmtime(os.path.join(native_dir, src)) > built
+                   for src in sources)
+
+    if stale():
+        with open(os.path.join(native_dir, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if stale():
+                res = subprocess.run(
+                    ["make", "-C", native_dir, target, *make_vars],
+                    capture_output=True, text=True,
+                )
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        f"building {lib} failed:\n{res.stdout}{res.stderr}"
+                    )
+    return lib
+
+
 def load() -> Optional[ctypes.CDLL]:
+    """The native library (built on first use), or None when it cannot
+    be built here."""
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
+    try:
+        path = ensure_built()
+    except (OSError, RuntimeError):
         return None
-    lib = ctypes.CDLL(_LIB_PATH)
+    lib = ctypes.CDLL(path)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     lib.kh_sha256.argtypes = [u8p, ctypes.c_uint64, u8p]
     lib.kh_hash160.argtypes = [u8p, ctypes.c_uint64, u8p]
@@ -43,7 +85,28 @@ def load() -> Optional[ctypes.CDLL]:
     lib.kh_scalar_mult.argtypes = [u8p, u8p, u8p]
     lib.kh_scalar_mult.restype = ctypes.c_int
     lib.kh_verify_h160.argtypes = [u8p, ctypes.c_uint64, ctypes.c_int, u8p, u8p]
+    lib.kh_baby_build.argtypes = [
+        ctypes.c_uint64, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int
+    ]
+    lib.kh_baby_build.restype = ctypes.c_int
+    lib.kh_baby_keys_range.argtypes = [
+        ctypes.c_uint64, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64),
+    ]
+    lib.kh_baby_keys_range.restype = ctypes.c_int
+    vp, u64 = ctypes.c_void_p, ctypes.c_uint64
+    lib.kh_walk_bases_ref.argtypes = [vp] * 7 + [u64]
+    lib.kh_walk_bases_ref.restype = None
+    lib.kh_walk_blocks_ref.argtypes = [vp] * 7 + [u64, u64, ctypes.c_int]
+    lib.kh_walk_blocks_ref.restype = ctypes.c_int
     _lib = lib
+    return lib
+
+
+def require() -> ctypes.CDLL:
+    """The native library, or an error saying why it is missing."""
+    lib = load()
+    if lib is None:
+        ensure_built()  # raises with the build's output
     return lib
 
 

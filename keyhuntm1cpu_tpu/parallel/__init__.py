@@ -2,7 +2,7 @@
 
 The reference's parallelism is threads claiming range windows under a
 mutex (keyhunt.cpp:3824-3841) plus a shared read-only bloom/table. The
-TPU-native re-design (SURVEY.md §2.4):
+mesh re-design (SURVEY.md §2.4):
 
 - ``partition``: deterministic static range partitioning (replaces the
   lock; capability of the bodiless reference RangePartitioner,
@@ -10,9 +10,9 @@ TPU-native re-design (SURVEY.md §2.4):
 - ``mesh``: shard_map'd BSGS search over a device mesh — every device owns
   a disjoint range slice (data parallel over the 'shard' axis), the baby
   table and stride tables are replicated, and hit counts are aggregated
-  with a psum over ICI.
+  with a psum across the devices.
 - ``brute_mesh``: the same range sharding for the brute/hash modes —
-  every device runs the fused walk+hash+membership kernel on its slice.
+  every device runs the fused walk+hash+membership chunk on its slice.
 """
 
 from .partition import RangePartitioner, RangeSlice  # noqa: F401

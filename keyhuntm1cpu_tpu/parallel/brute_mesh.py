@@ -4,11 +4,10 @@ Range data-parallelism for the hash/xpoint modes (SURVEY.md §2.4 row 1
 applied to thread_process, keyhunt.cpp:2511-3099): the scalar range is
 statically partitioned into window-aligned slices, one per device on the
 'shard' mesh axis; every device runs the SAME fused walk+hash+membership
-kernel (curve/pbrute.py) on its own slice, with the target words /
-bucket table / step tables replicated (read-only, like the reference's
-shared bloom+table). A psum'd interest flag over ICI lets the host skip
-decoding all-quiet chunks — one replicated scalar per chunk instead of
-D summaries.
+chunk (curve/pbrute.py) on its own slice, with the target words and step
+tables replicated (read-only, like the reference's shared bloom+table).
+A psum'd interest flag lets the host skip decoding all-quiet chunks —
+one replicated scalar per chunk instead of D summaries.
 
 Per-device index algebra, summary decoding, and exact host verification
 are delegated to D child BruteEngine instances (one per slice, sharing
@@ -41,9 +40,9 @@ from .partition import RangePartitioner
 class ShardedBruteEngine:
     """Brute modes with the range sharded across all devices of a mesh.
 
-    Children must take the fused-kernel path (params.pallas is forced to
-    'on'; the XLA fallback has its own walker-level parallelism and no
-    mesh story — use dist/ workers for CPU fleets instead).
+    Children must take the fused path (params.fused is forced to 'on';
+    the bitmap path has its own walker-level parallelism and no mesh
+    story — use dist/ workers for CPU fleets instead).
     """
 
     def __init__(
@@ -66,7 +65,7 @@ class ShardedBruteEngine:
                 "mesh: shards scan their slices sequentially (use "
                 "unsharded -R, or dist/ workers for randomized fleets)"
             )
-        params = replace(params, pallas="on")
+        params = replace(params, fused="on")
         self.p = params
         window = params.block_u * params.stride
         self.slices = RangePartitioner.split_equal(
@@ -82,15 +81,6 @@ class ShardedBruteEngine:
         ]
         for c in self.children:
             assert c._fast
-        if (jax.default_backend() == "cpu"
-                and self.children[0]._n_bucket_rows):  # pragma: no cover
-            from ..core.log import get_logger
-
-            get_logger().warn(
-                "sharded brute with a bucketed target set on the CPU "
-                "backend interprets the fused kernel (pathologically "
-                "slow) — intended for TPU meshes"
-            )
         self.stats = SearchStats()
         self.stats.multiplier = self.children[0].stats.multiplier
         self.local_steps = max(c._fast_total_steps for c in self.children)
@@ -122,35 +112,17 @@ class ShardedBruteEngine:
 
         p = self.p
         c0 = self.children[0]
-        K, U, SB, C = p.steps_per_chunk, p.block_u, p.pallas_sb, p.chunk_cand
+        K, U, C = p.steps_per_chunk, p.block_u, p.chunk_cand
         mode, ne = c0.mode, c0._n_endo_fast
-        from ..engine.brute import resolve_hash_rows
 
-        hr = resolve_hash_rows(c0.mode, p.block_u, p.hash_rows)
-        nbr = c0._n_bucket_rows
-
-        interpret = c0._interpret  # CPU backend interprets (slow but real)
-        # CPU meshes take the XLA twin (identical summary layout):
-        # interpret-mode execution of the fused kernel unrolls the Fermat
-        # ladder into a ~250k-op graph (>1 h XLA:CPU compile). The twin
-        # has no bucketed-membership path, so large-T sets keep interpret.
-        use_xla_twin = c0._interpret and nbr == 0
-
-        def local_chunk(px, py, tabx, taby, ax, ay, tgt, btab):
+        def local_chunk(px, py, tabx, taby, ax, ay, tgt):
             """px/py: (1, 8) local shard base; the rest replicated args
             (P() specs) so the serialized HLO stays small."""
-            if use_xla_twin:
-                nx, ny, out = pbrute.xla_brute_chunk(
-                    px.reshape(8), py.reshape(8), tabx, taby, ax, ay,
-                    tgt, K=K, U=U, C=C, mode=mode, n_endo=ne,
-                    chain=self.p.chain_len,
-                )
-            else:
-                nx, ny, out = pbrute.pallas_brute_chunk(
-                    px.reshape(8), py.reshape(8), tabx, taby, ax, ay, tgt,
-                    btab, K=K, U=U, SB=SB, C=C, mode=mode, n_endo=ne,
-                    hash_rows=hr, n_bucket_rows=nbr, interpret=interpret,
-                )
+            nx, ny, out = pbrute.xla_brute_chunk(
+                px.reshape(8), py.reshape(8), tabx, taby, ax, ay,
+                tgt, K=K, U=U, C=C, mode=mode, n_endo=ne,
+                chain=self.p.chain_len,
+            )
             npos = (out[:C] < K * U).sum()
             ndeg = out[2 * C : 2 * C + K].sum()
             adv = out[2 * C + 2 * K : 2 * C + 3 * K].sum()
@@ -161,19 +133,15 @@ class ShardedBruteEngine:
         smapped = shard_map(
             local_chunk,
             mesh=self.mesh,
-            in_specs=(P("shard"), P("shard")) + (P(),) * 6,
+            in_specs=(P("shard"), P("shard")) + (P(),) * 5,
             out_specs=(P("shard"), P("shard"), P("shard"), P()),
             check_vma=False,
         )
         jitted = jax.jit(smapped)
 
         def chunk(px, py):
-            tabx = c0.tab_x if use_xla_twin else c0._tab_x_lm
-            taby = c0.tab_y if use_xla_twin else c0._tab_y_lm
-            return jitted(
-                px, py, tabx, taby, c0._adv_x_f,
-                c0._adv_y_f, c0._tgt_words, c0._btab,
-            )
+            return jitted(px, py, c0.tab_x, c0.tab_y, c0._adv_x_f,
+                          c0._adv_y_f, c0._tgt_words)
 
         return chunk
 

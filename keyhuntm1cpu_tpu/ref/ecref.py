@@ -1,7 +1,7 @@
 """Exact secp256k1 arithmetic over python ints (golden reference).
 
 Implements the curve y^2 = x^3 + 7 over F_p from the SEC 2 standard
-parameters. This is the ground truth the JAX/Pallas kernels are tested
+parameters. This is the ground truth the JAX and CUDA kernels are tested
 against, and the exact verifier the engines call on candidate hits
 (the role the GMP backend plays in the reference, gmp256k1/GMP256K1.cpp).
 

@@ -190,7 +190,7 @@ class BSGSDServer(socketserver.ThreadingTCPServer):
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(prog="keyhunt-tpu-bsgsd")
+    p = argparse.ArgumentParser(prog="keyhunt-bsgsd")
     p.add_argument("-i", "--ip", default="127.0.0.1")
     p.add_argument("-p", "--port", type=int, default=8080)
     p.add_argument("--m-babies", type=int, default=None,
@@ -226,7 +226,10 @@ def main(argv=None):
     p.add_argument("--host-table-cache", default=None,
                    help="host-table cache dir (--resolve host)")
     args = p.parse_args(argv)
+    from .core import device
     from .engine.bsgs import resolve_m
+
+    device.enable_compile_cache()
 
     try:
         args.m_babies = resolve_m(args.m_babies, args.n_value, args.k_factor)

@@ -22,7 +22,7 @@ This module lets a reference deployment carry its precompute over —
 either direction: `read_*` parse + checksum-verify legacy files (and
 `verify_against_ecref` spot-checks their contents against exact EC
 math); `export_reference_files` writes a fresh, reference-loadable set
-(useful the other way too: build on TPU minutes faster, serve on CPU).
+(useful the other way too: build on the GPU, serve on the CPU).
 """
 
 from __future__ import annotations
@@ -401,7 +401,7 @@ def export_reference_files(dirpath: str, m: int,
     The reference reads these with `-S` (keyhunt.cpp:1373-1612) and skips
     its own table build — the capability its legacy deployments rely on
     (BSGSD.md:58-66). x32 defaults to an exact host walk (slow for large
-    m; the TPU engines keep their own npz format as the native path).
+    m; the device engines keep their own npz format as the native path).
     """
     if x32 is None:
         x32 = baby_x_bytes(m)

@@ -1,6 +1,7 @@
 // Native host-side support library (C++17, no external deps).
 //
-// The TPU framework keeps its compute path in JAX/XLA; this library is the
+// The framework keeps its device compute in JAX/XLA and the CUDA walk
+// kernels (walk_kernels.cu); this library is the
 // native runtime around it — the role the reference's C++ layers play on
 // host: exact secp256k1 verification (reference secp256k1/Int*.cpp,
 // SECP256K1.cpp), SHA-256 / RIPEMD-160 (reference hash/), and base58
@@ -22,6 +23,8 @@
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
+
+#include "walk_math.h"
 
 // ---------------------------------------------------------------------------
 // SHA-256 (FIPS 180-4)
@@ -434,7 +437,7 @@ static int decode(const char* str, size_t len, uint8_t* out, size_t out_cap) {
 // ---------------------------------------------------------------------------
 // BSGS baby-table builder (host exact-resolution table).
 //
-// TPU-native split of the reference's bP table (capability of
+// Host/device split of the reference's bP table (capability of
 // keyhunt.cpp:4404-4592 thread_bPload + :1366-1371 bPtable): the DEVICE keeps
 // only the probabilistic filters (bitmap + hashed bloom, filter/bitmap.py);
 // the exact 64-bit-truncation -> baby-index table lives on the HOST, built
@@ -737,6 +740,41 @@ void kh_verify_h160(const uint8_t* keys_be, uint64_t n, int mode,
     kh_hash160(msg, len, h);
     results[i] = memcmp(h, target, 20) == 0 ? 1 : 0;
   }
+}
+
+// Host reference of the GPU walk kernels (walk_kernels.cu): the same
+// per-lane code, looped over lanes on one core.
+void kh_walk_bases_ref(const uint32_t* px, const uint32_t* py,
+                       const uint32_t* qx, const uint32_t* qy, uint32_t* ox,
+                       uint32_t* oy, uint8_t* inf, uint64_t n) {
+  for (uint64_t i = 0; i < n; i++) {
+    uint32_t a[8], b[8], c[8], d[8], x3[8], y3[8];
+    khw::load(a, px, n, i);
+    khw::load(b, py, n, i);
+    khw::load(c, qx, n, i);
+    khw::load(d, qy, n, i);
+    inf[i] = khw::add_full(x3, y3, a, b, c, d) ? 1 : 0;
+    khw::store(ox, n, i, x3);
+    khw::store(oy, n, i, y3);
+  }
+}
+
+int kh_walk_blocks_ref(const uint32_t* bx, const uint32_t* by,
+                       const uint32_t* tx, const uint32_t* ty, uint32_t* qlo,
+                       uint32_t* qhi, uint8_t* deg, uint64_t nb, uint64_t u,
+                       int chain) {
+  if (chain < 1 || nb % (uint64_t)chain != 0) return -1;
+  std::vector<uint32_t> pre((size_t)chain * 8);
+  for (uint64_t lane = 0; lane < u; lane++) {
+    uint32_t txl[8], tyl[8];
+    khw::load(txl, tx, u, lane);
+    khw::load(tyl, ty, u, lane);
+    for (uint64_t b0 = 0; b0 < nb; b0 += chain)
+      khw::walk_chain(bx, by, nb, txl, tyl, u, lane, b0, chain,
+                      reinterpret_cast<uint32_t(*)[8]>(pre.data()), qlo, qhi,
+                      deg);
+  }
+  return 0;
 }
 
 }  // extern "C"

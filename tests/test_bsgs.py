@@ -5,6 +5,8 @@ solved puzzle in its range" (SURVEY.md §4, BSGSD.md:33-96). These tests do
 that with scaled-down parameters so they run on the CPU backend.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -240,11 +242,9 @@ def test_immediate_hit_out_of_range_does_not_abort():
 
 
 def test_multi_target_group_split_shapes():
-    """T > 128 splits into lane-width kernel-A groups; the concatenated
-    block rows must keep the global t*K + s indexing (shape-level check;
-    the on-device recovery gate is validate_pwalk.validate_multi_target_groups)."""
+    """The walk-kernel chunk keeps the global t*K + s row indexing for
+    any T (shape-level check of the CUDA route, no card needed)."""
     import jax
-    import jax.numpy as jnp
 
     from keyhuntm1cpu_tpu.curve import pwalk
     from keyhuntm1cpu_tpu.field import fe
@@ -253,11 +253,11 @@ def test_multi_target_group_split_shapes():
     pts = [ecref.scalar_mult(1000 + i) for i in range(2)]
     px = np.stack([fe.int_to_limbs(pts[i % 2][0]) for i in range(T)])
     py = np.stack([fe.int_to_limbs(pts[i % 2][1]) for i in range(T)])
-    tab = np.zeros((8, U // 128, 128), np.uint32)
-    adv = np.zeros((8,), np.uint32)
+    tab = np.zeros((8, U), np.uint32)
+    adv = np.zeros((8, K), np.uint32)
     res = jax.eval_shape(
-        lambda a, b: pwalk.pallas_chunk_multi(
-            a, b, tab, tab, adv, adv, K=K, U=U, T=T, SB=4),
+        lambda a, b: pwalk.walk_chunk(a, b, tab, tab, adv, adv,
+                                      impl="cuda"),
         px.astype(np.uint32), py.astype(np.uint32))
     assert res.next_x.shape == (T, 8)
     assert res.qhi.shape == (T * K, U)
@@ -265,42 +265,43 @@ def test_multi_target_group_split_shapes():
     assert res.adv_degenerate.shape == (T, K)
 
 
-def test_use_pallas_gate_accepts_large_T():
-    """Up to 1024 targets stay on the kernel path (grouped); beyond falls
-    back with a warning."""
-    params = BSGSParams(m=256, block_u=256, steps_per_chunk=4, chain_len=8)
-    pub = ecref.scalar_mult(7)
+def test_use_pallas_gate_accepts_large_T(monkeypatch):
+    """On the GPU the walk kernels take any T whose per-step words fit the
+    chunk cap; the CPU always takes the XLA walk."""
+    from keyhuntm1cpu_tpu.core import device
+    from keyhuntm1cpu_tpu.engine import bsgs as bsgs_mod
     from keyhuntm1cpu_tpu.engine.bsgs import host_baby_table
 
+    params = BSGSParams(m=256, block_u=256, steps_per_chunk=4, chain_len=8)
+    pub = ecref.scalar_mult(7)
     table = host_baby_table(params.m)
     eng = BSGSEngine([pub] * 200, 0x900000, 0xA00000, params, table=table)
-    import dataclasses
-
-    p_on = dataclasses.replace(params, pallas="on")
-    eng.p = p_on
-    assert eng._use_pallas()
-    eng.targets = [pub] * 1025
-    with pytest.raises(ValueError):
-        eng._use_pallas()
+    assert not eng._use_kernel()  # CPU
+    monkeypatch.setattr(device, "backend", lambda: "gpu")
+    assert eng._use_kernel()
+    eng.targets = [pub] * (bsgs_mod.CHUNK_WORD_CAP // params.block_u + 1)
+    assert not eng._use_kernel()
 
 
 def test_multi_target_chunk_memory_autoshrink():
     """A T*K*U combination past the chunk word cap must shrink
     steps_per_chunk instead of building an OOM-sized chunk."""
-    import dataclasses
-
     from keyhuntm1cpu_tpu.engine.bsgs import host_baby_table
 
     params = BSGSParams(m=256, block_u=1024, steps_per_chunk=256,
-                        chain_len=8, pallas="on")
+                        chain_len=8)
     table = host_baby_table(params.m)
     pub = ecref.scalar_mult(7)
     eng = BSGSEngine([pub] * 1024, 1 << 30, 1 << 40, params, table=table)
+    eng._kernel_setup()
     # 1024 * 256 * 1024 = 2^28 > 2^27 cap -> K shrinks to 128
     assert eng.p.steps_per_chunk == 128
+    assert eng._adv_x_lm.shape == (8, 128)
     # single target at the same shapes stays untouched
     eng1 = BSGSEngine([pub], 1 << 30, 1 << 40, params, table=table)
+    eng1._kernel_setup()
     assert eng1.p.steps_per_chunk == 256
+    assert eng1._tab_x_lm.shape == (8, 1024)
 
 
 def test_search_stats_exact_under_forced_rebase(shared_engine_table):

@@ -158,23 +158,6 @@ def test_open_ended_range():
         parse_range("800000")
 
 
-def test_resolve_hash_rows_defaults():
-    """Per-mode emit sub-blocking defaults from the device A/B
-    (docs/gates/05_hash_rows_ab.log)."""
-    from keyhuntm1cpu_tpu.engine.brute import resolve_hash_rows
-
-    assert resolve_hash_rows("eth", 16384, None) == 8
-    assert resolve_hash_rows("rmd160", 16384, None) == 16
-    assert resolve_hash_rows("address_u", 16384, None) == 32  # gate 38
-    assert resolve_hash_rows("xpoint", 16384, None) is None
-    # explicit wins; untileable shapes fall back to full tile
-    assert resolve_hash_rows("eth", 16384, 32) == 32
-    assert resolve_hash_rows("eth", 256, None) is None
-    assert resolve_hash_rows("rmd160", 1024, None) is None  # hr == rows
-    assert resolve_hash_rows("rmd160", 2048, None) is None  # 16 == rows
-    assert resolve_hash_rows("eth", 2048, None) == 8
-
-
 def test_targets_from_ints_widths():
     from keyhuntm1cpu_tpu.utils.targets import targets_from_ints
 
@@ -188,9 +171,9 @@ def test_targets_from_ints_widths():
 
 
 def test_vanity_look_mapping(monkeypatch):
-    """-m vanity maps -l to the fused-kernel mode on non-CPU backends
-    (uncompress must route to address_u, not silently compressed)."""
-    import jax
+    """-m vanity maps -l to the fused-path mode on the GPU (uncompress
+    must route to address_u, not silently compressed)."""
+    from keyhuntm1cpu_tpu.core import device
 
     captured = {}
 
@@ -204,7 +187,7 @@ def test_vanity_look_mapping(monkeypatch):
         def search(self, **kw):
             return []
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(device, "backend", lambda: "gpu")
     monkeypatch.setattr(cli, "BruteEngine", _Stub)
     for look, want in (("compress", "rmd160"), ("uncompress", "address_u"),
                        ("both", "rmd160_both")):
@@ -335,38 +318,6 @@ def test_config_without_m_babies_keeps_k_sizing(tmp_path, pubfile,
     assert captured["m"] == 1024
 
 
-def test_hash_rows_small_tile_default_ok():
-    """hash_rows=None must accept tiles with U/128 < 8 (the pre-sub-block
-    default shapes, e.g. block_u=256) — regression for the hr%8 check."""
-    from keyhuntm1cpu_tpu.engine.brute import BruteEngine, BruteParams
-    from keyhuntm1cpu_tpu.ref import ecref, hashref
-    from keyhuntm1cpu_tpu.utils.targets import TargetSet
-
-    raw = [hashref.pubkey_to_hash160(ecref.scalar_mult(5), compressed=True)]
-    ts = TargetSet(kind="hash160", raw=raw, labels=["5"])
-    eng = BruteEngine(ts, 1, 1 << 16, mode="rmd160",
-                      params=BruteParams(block_u=256, steps_per_chunk=4,
-                                         pallas_sb=4, pallas="on"))
-    assert eng._fast
-    # the kernel wrapper's validation must also accept hr == rows < 8
-    import jax
-    import jax.numpy as jnp
-
-    from keyhuntm1cpu_tpu.curve import pbrute
-
-    tgt = jnp.asarray(pbrute.pack_intervals([5], [5]))
-    out = jax.eval_shape(
-        lambda t: pbrute.brute_walk_blocks(
-            jnp.zeros((8, 4, 128), jnp.uint32),
-            jnp.zeros((8, 4, 128), jnp.uint32),
-            jnp.zeros((8, 2, 128), jnp.uint32),
-            jnp.zeros((8, 2, 128), jnp.uint32),
-            t, jnp.zeros((8, 128), jnp.uint32),
-            U=256, SB=4, mode="xpoint", n_endo=1, hash_rows=None),
-        tgt)
-    assert out.shape == (4, 2, 128)
-
-
 def test_sharded_table_cli(tmp_path, pubfile, monkeypatch):
     """--sharded table routes to the table-sharded engine (m scales past
     one device's memory) and still recovers the key via the CLI."""
@@ -418,7 +369,7 @@ def test_config_file_k_n_and_crypto(tmp_path, pubfile, monkeypatch):
 
 def test_sharded_brute_cli_wiring(tmp_path, monkeypatch):
     """--sharded with a brute mode routes to ShardedBruteEngine (kernel
-    runs on TPU meshes; here the engine is stubbed to verify the CLI
+    runs on GPU meshes; here the engine is stubbed to verify the CLI
     plumbing end-to-end: construction args, search call, key output)."""
     from keyhuntm1cpu_tpu.engine.common import FoundKey
     from keyhuntm1cpu_tpu.parallel import brute_mesh

@@ -142,7 +142,7 @@ class TestMetrics:
             with urllib.request.urlopen(f"{base}/healthz") as r:
                 assert r.read() == b"ok"
             with urllib.request.urlopen(f"{base}/") as r:
-                assert b"keyhunt-tpu" in r.read()
+                assert b"keyhunt" in r.read()
             with urllib.request.urlopen(f"{base}/metrics") as r:
                 assert r.headers["Content-Type"].startswith("text/plain")
                 text = r.read().decode()

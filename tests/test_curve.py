@@ -98,52 +98,3 @@ def test_walk_nonsymmetric():
     xp = fe.to_ints(res.x_plus[0])
     for u in range(1, U + 1):
         assert xp[u - 1] == ecref.scalar_mult(50 + u)[0]
-
-
-def test_pladder_mxu_gather_matches_indexing():
-    """curve/pladder.py one-hot int8 MXU gather == gx[byte] exactly for
-    every window (the EXACTNESS of the centered-int8 dot is the whole
-    trick; the ladder kernel itself is device-gated by
-    scripts/check_pladder.py — XLA:CPU takes 2m50s to compile even ONE
-    fe_tiles mixed add, so no CPU twin)."""
-    import jax.numpy as jnp
-
-    from keyhuntm1cpu_tpu.curve import pladder, tables
-
-    gx, gy = tables.gtable_np()
-    rng = np.random.default_rng(3)
-    kv = rng.integers(0, 2**32, (64, 8), dtype=np.uint32)
-    qx, qy, qinf = pladder._gather_windows(
-        jnp.asarray(kv), jnp.asarray(gx), jnp.asarray(gy)
-    )
-    qx, qy, qinf = np.asarray(qx), np.asarray(qy), np.asarray(qinf)
-    for w in range(32):
-        byte = (kv[:, w // 4] >> (8 * (w % 4))) & 0xFF
-        assert np.array_equal(qx[w], gx[w][byte]), f"window {w} x"
-        assert np.array_equal(qy[w], gy[w][byte]), f"window {w} y"
-        assert np.array_equal(qinf[w], byte == 0)
-
-
-def test_pladder_slab_layout_mapping():
-    """The window-major slab layout must route (window w, batch i) to
-    sublane w*BR + (i row offset) of grid block i//(BR*128) — the
-    kernel reads qx_ref[:, w*BR : (w+1)*BR, :] per window."""
-    import jax.numpy as jnp
-
-    LANES = 128
-    nb, br = 3, 8
-    n = nb * br * LANES
-    rng = np.random.default_rng(0)
-    a = rng.integers(0, 2**32, (32, n, 8), dtype=np.uint32)
-
-    v = jnp.asarray(a).reshape(32, nb, br, LANES, 8)
-    slab = np.asarray(
-        jnp.transpose(v, (4, 1, 0, 2, 3)).reshape(8, nb * 32 * br, LANES)
-    )
-    for r in (0, 2):
-        for w in (0, 17, 31):
-            for j in (0, 7):
-                for lane in (0, 127):
-                    batch = (r * br + j) * LANES + lane
-                    got = slab[:, r * (32 * br) + w * br + j, lane]
-                    assert np.array_equal(got, a[w, batch]), (r, w, j)

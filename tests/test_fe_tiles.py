@@ -1,4 +1,4 @@
-"""Limb-major tile arithmetic (field/fe_tiles.py) vs python-int golden."""
+"""Limb-split field arithmetic (field/fe_tiles.py) vs python-int golden."""
 
 import numpy as np
 import pytest
@@ -61,10 +61,24 @@ class TestTileOps:
         assert got == [pow(x, P - 2, P) for x in a]
 
     def test_montgomery_inv_groups(self):
+        """chain_inverse: Montgomery chains along axis 0, one Fermat
+        ladder per chain lane (numpy reference path)."""
         a = _rand_elems(64)
-        t = _tiles_from_ints(a)  # (8, 8, 8)
-        out = ft.montgomery_inv_groups(t, n_groups=4)
+        t = np.asarray(_tiles_from_ints(a))  # (8, 8, 8): 8-long chains
+        out = ft.chain_inverse(t)
         assert _ints_from_tiles(out) == [pow(x, P - 2, P) for x in a]
+
+    def test_numpy_path_matches_jax(self):
+        """The numpy reference path of every op equals the jax path."""
+        a, b = _rand_elems(16), _rand_elems(16)
+        ta, tb = _tiles_from_ints(a), _tiles_from_ints(b)
+        na, nb = np.asarray(ta), np.asarray(tb)
+        for op in (ft.mul, ft.sqr, ft.add, ft.sub):
+            args = (ta, tb)[: 1 if op is ft.sqr else 2]
+            nargs = (na, nb)[: len(args)]
+            got = op(*nargs)
+            assert all(isinstance(g, np.ndarray) for g in got)
+            assert np.array_equal(np.asarray(got), np.asarray(op(*args)))
 
     def test_select_eq_iszero(self):
         a = _rand_elems(8)

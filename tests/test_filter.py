@@ -247,24 +247,6 @@ def test_probe_sorted_matches_natural():
     assert nat[:256].all()  # planted members survive
 
 
-def test_dma_gather_interpret_matches_elem():
-    """probe_mode="dma"'s Pallas MLP gather must equal words[idx]
-    bit-exactly (interpret mode on CPU; the device gate re-checks on
-    hardware). Covers the BQ-padding path with a non-multiple size."""
-    import numpy as np
-    import jax.numpy as jnp
-    from keyhuntm1cpu_tpu.filter import bitmap as bmp
-
-    rng = np.random.default_rng(7)
-    words = jnp.asarray(rng.integers(0, 2**32, size=1 << 12, dtype=np.uint32))
-    for B, BQ in ((256, 64), (200, 64)):
-        idx = jnp.asarray(
-            rng.integers(0, 1 << 12, size=B, dtype=np.int64).astype(np.int32)
-        )
-        got = np.asarray(bmp.dma_gather(idx, words, BQ=BQ, interpret=True))
-        np.testing.assert_array_equal(got, np.asarray(words)[np.asarray(idx)])
-
-
 def test_bloom2_no_false_negatives_and_fp():
     """Level-2 hashed bloom: every table key passes probe_bloom2; the
     false-positive rate on random non-members stays near the design

@@ -132,28 +132,3 @@ class TestSHA512:
             for i in range(b):
                 want = hashlib.sha512(msgs[i].tobytes()).digest()
                 assert got[i].tobytes() == want, f"len={length} row={i}"
-
-
-
-def test_keccak_tile_loop_variant_bit_exact(xy, monkeypatch):
-    """KEYHUNT_KECCAK_LOOP=1 (fori_loop keccak-f, spill-pressure
-    experiment) must match the unrolled tiles and hashref bit-exactly."""
-    import numpy as np
-
-    from keyhuntm1cpu_tpu.field import fe
-    from keyhuntm1cpu_tpu.hash import phash
-    import jax.numpy as jnp
-
-    xl8 = np.stack([fe.int_to_limbs(p[0]) for p in PTS]).astype(np.uint32)
-    yl8 = np.stack([fe.int_to_limbs(p[1]) for p in PTS]).astype(np.uint32)
-    xl = [jnp.asarray(xl8[:, i]) for i in range(8)]
-    yl = [jnp.asarray(yl8[:, i]) for i in range(8)]
-    monkeypatch.delenv("KEYHUNT_KECCAK_LOOP", raising=False)
-    base = [np.asarray(w) for w in phash.keccak_eth_words(xl, yl)]
-    monkeypatch.setenv("KEYHUNT_KECCAK_LOOP", "1")
-    loop = [np.asarray(w) for w in phash.keccak_eth_words(xl, yl)]
-    assert all(np.array_equal(a, b) for a, b in zip(base, loop))
-    for i, pt in enumerate(PTS):
-        exp = hashref.pubkey_to_eth_address(pt)
-        assert base[0][i] == int.from_bytes(exp[:4], "little")
-        assert base[1][i] == int.from_bytes(exp[4:8], "little")

@@ -1,6 +1,6 @@
 """Host-resolve BSGS: native table builder, HostTable, cascade without a
-device exact table, engine end-to-end (XLA path; the pallas path runs in
-the device gates, scripts/gate_host_resolve.py)."""
+device exact table, engine end-to-end (XLA path; the walk-kernel path runs
+on the card in chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -167,39 +167,39 @@ def test_host_rescan_exactness(table_4k):
 
 def test_filters_stream_sliced_matches_one_shot_and_host(monkeypatch):
     """The sliced stream build (host loop over _filters_stream_impl with
-    an it0 offset; gates 33/36 showed a single all-of-m dispatch crashes
-    the device worker) must produce bit-identical filters to a one-shot
-    call AND to host-computed planes.
+    an it0 offset, which keeps each device dispatch short) must produce
+    bit-identical filters to a one-shot call AND to host-computed planes.
 
-    The Pallas walk is monkeypatched with a deterministic counter-based
-    fake (interpret-mode EC walks take >15 min on a 1-core box); the
-    REAL walk's filter bits are certified on device by the gate's
-    1M-key no-false-negative sweep (scripts/gate_host_resolve.py)."""
+    The walk kernels are monkeypatched with a deterministic counter-based
+    fake (they run on the GPU only); chip_smoke.py certifies the REAL
+    walk's filters on the card by recovering puzzle 63 through them."""
     import jax.numpy as jnp
     from keyhuntm1cpu_tpu.curve import pwalk
     from keyhuntm1cpu_tpu.engine import bsgs as bsgs_mod
 
-    U, K, SB = 128, 8, 8
+    U, K = 128, 8
     KU = K * U
     bits_log2, b2bits = 14, 13
     n_words1, n_words2 = 1 << (bits_log2 - 5), 1 << (b2bits - 5)
 
-    def fake_chunk(px, py, tx, ty, ax, ay, K, U, SB=4, interpret=False):
-        c = px[0]
+    def fake_chunk(px, py, tx, ty, ax, ay, impl):
+        c = px[0, 0]
         base = c * jnp.uint32(KU) + jnp.arange(KU, dtype=jnp.uint32)
         qlo = (base * jnp.uint32(2654435761)).reshape(K, U)
         qhi = (base ^ jnp.uint32(0x9E3779B9)).reshape(K, U)
-        return pwalk.PallasChunkResult(
+        return pwalk.WalkChunk(
             px + jnp.uint32(1), py,
             qhi, qlo,
             jnp.zeros((K, U), dtype=bool),
-            jnp.zeros((K,), dtype=bool),
+            jnp.zeros((1, K), dtype=bool),
         )
 
-    monkeypatch.setattr(pwalk, "pallas_chunk", fake_chunk)
+    monkeypatch.setattr(pwalk, "walk_chunk", fake_chunk)
 
     n_total, n_keys = 3, 2 * U + 2 * KU + 77  # tail mask mid-iteration 2
-    px0 = jnp.zeros(8, dtype=jnp.uint32)
+    px0 = jnp.zeros((1, 8), dtype=jnp.uint32)
+    tab = jnp.zeros((8, U), jnp.uint32)
+    adv = jnp.zeros((8, K), jnp.uint32)
     zeros = lambda n: jnp.zeros(n, jnp.uint32)
 
     def run(slices):
@@ -207,14 +207,14 @@ def test_filters_stream_sliced_matches_one_shot_and_host(monkeypatch):
         cpx, cpy, it0 = px0, px0, 0
         for s in slices:
             ws1, ws2, cpx, cpy, dc, adv_any = bsgs_mod._filters_stream_impl(
-                cpx, cpy, None, None, None, None, ws1, ws2,
+                cpx, cpy, tab, tab, adv, adv, ws1, ws2,
                 jnp.int32(s), jnp.int32(it0), jnp.uint32(n_keys),
-                K=K, U=U, SB=SB, bits_log2=bits_log2, b2_bits=b2bits,
+                bits_log2=bits_log2, b2_bits=b2bits,
             )
             assert int(np.asarray(dc)) == 0
             assert not bool(np.asarray(adv_any))
             it0 += s
-        assert int(np.asarray(cpx)[0]) == n_total
+        assert int(np.asarray(cpx)[0, 0]) == n_total
         return np.asarray(ws1), np.asarray(ws2)
 
     one1, one2 = run([n_total])

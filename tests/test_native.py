@@ -1,7 +1,6 @@
 """Native host library (C++) vs the pure-python golden reference."""
 
 import random
-import subprocess
 
 import numpy as np
 import pytest
@@ -12,13 +11,44 @@ from keyhuntm1cpu_tpu.ref import ecref, hashref
 
 @pytest.fixture(scope="module", autouse=True)
 def build_lib():
-    if not native.available():
-        try:
-            subprocess.run(["make", "-C", "native"], check=True, capture_output=True)
-        except Exception:
-            pytest.skip("no C++ toolchain; python fallback covered elsewhere")
-    if not native.available():
-        pytest.skip("native lib unavailable")
+    if not native.available():  # builds on first use
+        pytest.skip("no C++ toolchain; python fallback covered elsewhere")
+
+
+def _copy_sources(dst):
+    import os
+    import shutil
+
+    for name in ("Makefile",) + native.LIB_SOURCES:
+        shutil.copy(os.path.join(native.NATIVE_DIR, name), dst)
+
+
+def test_library_built_on_first_use(tmp_path):
+    """A checkout without the .so builds it from native/Makefile once;
+    a fresh library is reused and a newer source rebuilds it."""
+    import ctypes
+    import os
+
+    _copy_sources(tmp_path)
+    lib = native.ensure_built(str(tmp_path))
+    assert lib == str(tmp_path / native.LIB_NAME)
+    assert hasattr(ctypes.CDLL(lib), "kh_baby_build")
+    built = os.path.getmtime(lib)
+    os.utime(lib, (built - 100, built - 100))
+    for src in native.LIB_SOURCES:
+        os.utime(tmp_path / src, (built - 200, built - 200))
+    native.ensure_built(str(tmp_path))
+    assert os.path.getmtime(lib) == built - 100  # up to date: no rebuild
+    os.utime(tmp_path / native.SOURCE_NAME, (built, built))
+    native.ensure_built(str(tmp_path))
+    assert os.path.getmtime(lib) > built - 100  # stale: rebuilt
+
+
+def test_library_build_failure_reports_output(tmp_path):
+    _copy_sources(tmp_path)
+    (tmp_path / native.SOURCE_NAME).write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="failed"):
+        native.ensure_built(str(tmp_path))
 
 
 def test_sha256_vectors():

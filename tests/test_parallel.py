@@ -180,12 +180,12 @@ def test_sharded_deadline_stops(table):
 
 
 class TestShardedBrute:
-    """Mesh orchestration of the fused brute kernel (parallel/brute_mesh).
+    """Mesh orchestration of the fused brute chunk (parallel/brute_mesh).
 
-    The kernel itself cannot execute on CPU (scripts/check_sbrute.py is
-    the on-device gate); these tests drive the orchestration — slice
-    assignment, decode fan-out, interest gating, degeneracy rebase —
-    through a synthetic chunk function with the real summary layout.
+    These tests drive the orchestration — slice assignment, decode
+    fan-out, interest gating, degeneracy rebase — through a synthetic
+    chunk function with the real summary layout (the chunk itself is
+    tested end to end below and in tests/test_pbrute.py).
     """
 
     def _engine(self, keys=(0x90150,), d=4, a=0x90000, span=1 << 12):
@@ -200,8 +200,8 @@ class TestShardedBrute:
                for k in keys]
         ts = TargetSet(kind="hash160", raw=raw,
                        labels=[str(k) for k in keys])
-        params = BruteParams(block_u=256, steps_per_chunk=4, pallas_sb=4,
-                             chunk_cand=64, pipeline_depth=2)
+        params = BruteParams(block_u=256, steps_per_chunk=4, chunk_cand=64,
+                             pipeline_depth=2)
         return ShardedBruteEngine(ts, a, a + span, mode="rmd160",
                                   params=params,
                                   devices=jax.devices()[:d])
@@ -319,8 +319,8 @@ class TestShardedBrute:
 
 def test_sharded_brute_end_to_end_xla_twin():
     """Planted key recovered THROUGH search_sharded on the CPU mesh —
-    runs on pbrute.xla_brute_chunk (the packed-summary XLA twin; the
-    interpret-mode fused kernel would take >1 h to compile here)."""
+    runs on pbrute.xla_brute_chunk, the fused chunk every platform
+    uses."""
     import jax
 
     from keyhuntm1cpu_tpu.engine.brute import BruteParams
@@ -329,8 +329,8 @@ def test_sharded_brute_end_to_end_xla_twin():
     from keyhuntm1cpu_tpu.utils.targets import TargetSet
 
     devs = jax.devices()[:4]
-    bp = BruteParams(block_u=256, steps_per_chunk=4, pallas_sb=4,
-                     chunk_cand=64, pipeline_depth=2)
+    bp = BruteParams(block_u=256, steps_per_chunk=4, chunk_cand=64,
+                     pipeline_depth=2)
     a = 0x90000
     span = bp.block_u * 2 * len(devs) * 8
     key = a + span - 5 * bp.block_u  # in the LAST shard's slice

@@ -1,9 +1,6 @@
-"""Fused brute pipeline (curve/pbrute.py): host-side logic tests.
-
-The kernels themselves are mul-heavy Pallas code that only runs at speed
-on real TPU hardware (scripts/check_pbrute.py is the on-device bit-exact
-gate, run every round); here we test everything around them: engine
-gating, target-word packing, index algebra, and summary decoding.
+"""Fused brute pipeline (curve/pbrute.py): engine gating, target-word
+packing, index algebra, summary decoding, and the fused chunk itself
+against the host reference (hashref) in every mode.
 """
 
 import numpy as np
@@ -41,20 +38,13 @@ def test_auto_gate_off_on_cpu():
     ts = _targets([1, 2, 3])
     eng = BruteEngine(ts, 1, 1 << 20, mode="rmd160",
                       params=BruteParams(block_u=256, steps_per_chunk=4,
-                                         pallas="auto"))
-    assert not eng._fast  # auto never picks the kernel path on CPU
-
-
-def test_on_gate_validates_shapes():
-    ts = _targets([1, 2, 3])
-    with pytest.raises(ValueError):
-        BruteEngine(ts, 1, 1 << 20, mode="rmd160",
-                    params=BruteParams(block_u=100, pallas="on"))
+                                         fused="auto"))
+    assert not eng._fast  # auto keeps exact sets on the bitmap path on CPU
 
 
 def _fast_engine(keys=(1, 2, 3), mode="rmd160", a=1, b=1 << 16, **kw):
-    params = BruteParams(block_u=256, steps_per_chunk=4, pallas_sb=4,
-                         pallas="on", chunk_cand=64, **kw)
+    params = BruteParams(block_u=256, steps_per_chunk=4, fused="on",
+                         chunk_cand=64, **kw)
     return BruteEngine(_targets(list(keys), mode), a, b, mode=mode, params=params)
 
 
@@ -178,125 +168,9 @@ def test_intervals_with_pallas_off_raise():
 
     ts = _targets([1, 2])
     ivs = vanity_intervals("1Q")
-    with pytest.raises(ValueError, match="kernel path"):
+    with pytest.raises(ValueError, match="fused path"):
         BruteEngine(ts, 1, 1 << 20, mode="rmd160",
-                    params=BruteParams(pallas="off"), intervals=ivs)
-
-
-def test_on_gate_rejects_sb_not_dividing_8():
-    ts = _targets([1, 2])
-    with pytest.raises(ValueError):
-        BruteEngine(ts, 1, 1 << 20, mode="rmd160",
-                    params=BruteParams(block_u=384, steps_per_chunk=6,
-                                       pallas_sb=3, pallas="on"))
-
-
-def test_pack_buckets_routing_and_padding():
-    # values chosen to share lane 5: low 7 bits == 5
-    v1 = (0xAAAA0000 << 32) | 0x85  # lane 5
-    v2 = (0xBBBB0000 << 32) | 0x105  # lane 5 (bit 8 ignored by & 127)
-    v3 = (0xCCCC0000 << 32) | 0x07  # lane 7
-    out = pbrute.pack_buckets([v1, v2, v3])
-    assert out.shape == (8, 128)
-    assert out[0, 5] == 0xAAAA0000 and out[1, 5] == 0xBBBB0000
-    # padding repeats the bucket's first entry
-    assert out[2, 5] == 0xAAAA0000 and out[7, 5] == 0xAAAA0000
-    assert out[0, 7] == 0xCCCC0000 and out[3, 7] == 0xCCCC0000
-    # empty buckets stay zero
-    assert out[0, 9] == 0
-    # Lmax rounds up to a multiple of 8
-    big = pbrute.pack_buckets([5 + ((i + 1) << 32) for i in range(11)])
-    assert big.shape == (16, 128)
-    assert sorted(big[:11, 5]) == list(range(1, 12))
-
-
-def test_bucketed_gate_and_packing():
-    # 600 exact targets > compare_max=512: the kernel path stays on via
-    # lane buckets; intervals (none) become one impossible SMEM interval
-    keys = list(range(1, 601))
-    eng = _fast_engine(keys=keys, a=100)
-    assert eng._fast and eng._bucketed
-    assert eng._n_bucket_rows == eng._btab.shape[0]
-    assert eng._n_bucket_rows % 8 == 0
-    tw = np.asarray(eng._tgt_words)
-    # impossible interval: lo = (0,1), hi = (0,0) -> never contains
-    assert tw[0, 0] == 0 and tw[1, 0] == 1
-    assert tw[2, 0] == 0 and tw[3, 0] == 0
-    # every target's high word is present in its bucket's lane column
-    raw = eng.targets.raw
-    btab = np.asarray(eng._btab)
-    for r in raw[:16]:
-        v = int.from_bytes(r[:8], "big")
-        assert (v >> 32) & 0xFFFFFFFF in btab[:, v & 127]
-
-
-def test_bucketed_gate_past_bucket_max_falls_back():
-    ts = _targets([1, 2, 3])
-    params = BruteParams(block_u=256, steps_per_chunk=4, pallas_sb=4,
-                         pallas="on", compare_max=2, bucket_max=2)
-    with pytest.raises(ValueError, match="bucketed"):
-        BruteEngine(ts, 1, 1 << 16, mode="rmd160", params=params)
-
-
-def test_bucketed_with_intervals_keeps_both():
-    from keyhuntm1cpu_tpu.engine.vanity import vanity_intervals
-
-    keys = list(range(1, 601))
-    ivs = vanity_intervals("1Q")
-    params = BruteParams(block_u=256, steps_per_chunk=4, pallas_sb=4,
-                         pallas="on", chunk_cand=64)
-    eng = BruteEngine(_targets(keys), 1, 1 << 16, mode="rmd160",
-                      params=params, intervals=ivs)
-    assert eng._bucketed
-    tw = np.asarray(eng._tgt_words)
-    lo = (int(tw[0, 0]) << 32) | int(tw[1, 0])
-    hi = (int(tw[2, 0]) << 32) | int(tw[3, 0])
-    assert lo == int.from_bytes(ivs[0][0][:8], "big")
-    assert hi == int.from_bytes(ivs[0][1][:8], "big")
-
-
-def test_bucketed_chunk_traces():
-    # eval_shape the full bucketed chunk: catches shape/indexing bugs in
-    # the kernel body without Mosaic lowering (CPU-viable; the on-device
-    # bit-exact gate is scripts/check_pbrute.py buckets)
-    import jax
-
-    from keyhuntm1cpu_tpu.curve import pbrute as pb
-    from keyhuntm1cpu_tpu.field import fe
-
-    eng = _fast_engine(keys=list(range(1, 601)), a=100)
-    pt = ecref.scalar_mult(99)
-    px = np.asarray(fe.int_to_limbs(pt[0]), dtype=np.uint32)
-    py = np.asarray(fe.int_to_limbs(pt[1]), dtype=np.uint32)
-    shapes = jax.eval_shape(
-        lambda ppx, ppy: pb.pallas_brute_chunk(
-            ppx, ppy, eng._tab_x_lm, eng._tab_y_lm,
-            eng._adv_x_f, eng._adv_y_f, eng._tgt_words, eng._btab,
-            K=4, U=256, SB=4, C=64, mode="rmd160", n_endo=1,
-            n_bucket_rows=eng._n_bucket_rows,
-        ),
-        px, py,
-    )
-    assert shapes[2].shape == (2 * 64 + 3 * 4 + 1,)
-
-
-def test_on_gate_validates_hash_rows():
-    ts = _targets([1, 2, 3])
-    # not a multiple of 8
-    with pytest.raises(ValueError):
-        BruteEngine(ts, 1, 1 << 20, mode="rmd160",
-                    params=BruteParams(block_u=1024, pallas="on",
-                                       hash_rows=4))
-    # does not divide U/128
-    with pytest.raises(ValueError):
-        BruteEngine(ts, 1, 1 << 20, mode="rmd160",
-                    params=BruteParams(block_u=1024, pallas="on",
-                                       hash_rows=48))
-    # valid divisor passes the gate
-    eng = BruteEngine(ts, 1, 1 << 20, mode="rmd160",
-                      params=BruteParams(block_u=1024, pallas="on",
-                                         hash_rows=8))
-    assert eng._fast
+                    params=BruteParams(fused="off"), intervals=ivs)
 
 
 def test_decode_fast_vanity_endo_interval_hit():
@@ -309,8 +183,8 @@ def test_decode_fast_vanity_endo_interval_hit():
     want = 321 * lam % ecref.N
     addr = hashref.pubkey_to_address(ecref.scalar_mult(want), compressed=True)
     pref = addr[:6]
-    params = BruteParams(block_u=256, steps_per_chunk=4, pallas_sb=4,
-                         pallas="on", chunk_cand=64, endo=True)
+    params = BruteParams(block_u=256, steps_per_chunk=4, fused="on",
+                         chunk_cand=64, endo=True)
     eng = BruteEngine(
         TargetSet(kind="hash160", raw=[], labels=[]), 100, 1 << 16,
         mode="rmd160", params=params,
@@ -324,3 +198,59 @@ def test_decode_fast_vanity_endo_interval_hit():
     _, found = eng._decode_fast(0, arr)
     assert [f.private_key for f in found] == [want]
     assert found[0].target.startswith(pref)
+
+
+# artifact each mode matches, as the host reference computes it
+_ART = {
+    "xpoint": ("xpoint", lambda pt: pt[0].to_bytes(32, "big")),
+    "rmd160": ("hash160",
+               lambda pt: hashref.pubkey_to_hash160(pt, compressed=True)),
+    "address_u": ("hash160",
+                  lambda pt: hashref.pubkey_to_hash160(pt, compressed=False)),
+    # -l both: the uncompressed form is the one only this mode checks
+    "rmd160_both": ("hash160",
+                    lambda pt: hashref.pubkey_to_hash160(pt, compressed=False)),
+    "eth": ("eth", hashref.pubkey_to_eth_address),
+}
+
+
+@pytest.mark.parametrize("mode,endo", [
+    ("xpoint", False), ("rmd160", False), ("eth", False),
+    ("address_u", False), ("rmd160_both", False),
+    ("rmd160", True), ("xpoint", True),
+])
+def test_fused_chunk_recovers_planted_keys(mode, endo):
+    """xla_brute_chunk through BruteEngine: keys planted in the first and
+    a later chunk (for endo, lambda*k of scanned keys k) are recovered
+    exactly, with targets built by the host reference (hashref)."""
+    U, K, a = 16, 2, 1000
+    scanned = [a + 3, a + 2 * U * K + 7]
+    want = sorted(k * ecref.LAMBDA % ecref.N if endo else k for k in scanned)
+    kind, art = _ART[mode]
+    ts = TargetSet(kind=kind, raw=[art(ecref.scalar_mult(k)) for k in want],
+                   labels=[str(k) for k in want])
+    params = BruteParams(block_u=U, steps_per_chunk=K, fused="on",
+                         chunk_cand=16, chain_len=8, endo=endo)
+    eng = BruteEngine(ts, a, a + 4 * U * K, mode=mode, params=params)
+    assert eng._fast
+    got = sorted(f.private_key for f in eng.search(stop_on_first=False))
+    assert got == want
+
+
+def test_fused_chunk_vanity_intervals():
+    """Interval membership (vanity prefix, -l both) on the fused chunk:
+    the key whose address carries the prefix is found and host-verified."""
+    from keyhuntm1cpu_tpu.engine.vanity import vanity_intervals
+
+    U, K, a = 16, 2, 2000
+    key = a + U * K + 5
+    addr = hashref.pubkey_to_address(ecref.scalar_mult(key), compressed=True)
+    pref = addr[:4]
+    params = BruteParams(block_u=U, steps_per_chunk=K, fused="on",
+                         chunk_cand=16, chain_len=8)
+    eng = BruteEngine(TargetSet(kind="hash160", raw=[], labels=[]), a,
+                      a + 2 * U * K, mode="rmd160_both", params=params,
+                      intervals=vanity_intervals(pref), prefixes=[pref])
+    found = eng.search(stop_on_first=False)
+    hit = [f for f in found if f.private_key == key]
+    assert hit and hit[0].target.startswith(pref)
